@@ -1,0 +1,757 @@
+"""Device-resident row-block iteration: libsvm text to CUDA batches.
+
+Port of ``dmlc_core_tpu/tpu/device_iter.py`` for one device:
+
+  native parse + fused fill into pinned staging buffers (PaddedBatch /
+  DenseBatch, static shapes, shard-major packed planes)
+        -> staging thread (queue of depth ``prefetch``)
+        -> transfer thread: host->device copy on a side CUDA stream
+        -> consumer: its stream waits on the copy's event
+
+The static-shape rules are the reference's: ``batch_rows`` rows per batch
+(the last one padded with zero-weight rows), nnz bucketed to the next power
+of two (floor ``min_nnz_bucket``), per-nonzero local row ids with padding
+nonzeros on row ``rows_per_shard``. Batches keep the leading device axis
+D (1 in this slice) so that the multi-device slice can use D > 1.
+
+The device half replaces ``jax.device_put``. Staging buffers come from
+pinned memory (``torch.empty(..., pin_memory=True)``, 64-byte aligned for
+the native fills), the copy runs with ``non_blocking=True`` on a side
+stream, and the transfer thread waits for the copy's event before it
+queues the batch — so a staging buffer returns to the pool only after its
+copy completed. The consumer's stream then ``wait_event``\\ s on the copy
+and every device tensor gets ``record_stream`` for that stream, since the
+tensors were allocated on the side stream. On the CPU (``device="cpu"``)
+``torch.from_numpy`` aliases the staging buffer instead of copying; that
+is counted in ``device_zero_copy_batches_total``, and such buffers are
+never recycled, because the consumer's tensors still read them.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from dmlc_core_tpu_torch import telemetry
+from dmlc_core_tpu_torch.base import DMLCError, resolve_device
+from dmlc_core_tpu_torch.device.sharding import local_device_count
+from dmlc_core_tpu_torch.io.native import BF16_STORAGE, NativeBatcher
+
+__all__ = ["PaddedBatch", "DenseBatch", "DeviceRowBlockIter",
+           "NativeHostBatcher", "unpack_tree", "unpack_shard"]
+
+_lane_metrics = None
+
+
+def _get_lane_metrics():
+    """Device-lane metric objects, resolved once (same names as the
+    reference's device lane)."""
+    global _lane_metrics
+    if _lane_metrics is None:
+        _lane_metrics = {
+            "transfer_us": telemetry.histogram("device_transfer_us"),
+            "submit_us": telemetry.histogram("device_put_submit_us"),
+            "block_us": telemetry.histogram("device_put_block_us"),
+            "stage_us": telemetry.histogram("device_stage_us"),
+            "wait_us": telemetry.histogram("device_wait_us"),
+            "batches": telemetry.counter("device_batches_total"),
+            "bytes": telemetry.counter("device_transfer_bytes_total"),
+            "failures": telemetry.counter("device_put_failures_total"),
+            "host_q": telemetry.gauge("device_host_q_depth"),
+            "ready_q": telemetry.gauge("device_ready_q_depth"),
+            "zc_batches": telemetry.counter("device_zero_copy_batches_total"),
+        }
+    return _lane_metrics
+
+
+def _dense_dtype_of(d) -> np.dtype:
+    """Host storage dtype of the dense x plane: float32, or uint16 holding
+    bfloat16 bits (what the native FillDense writes)."""
+    if isinstance(d, str) and d in ("bf16", "bfloat16"):
+        return BF16_STORAGE
+    try:
+        if np.dtype(d) == np.float32:
+            return np.dtype(np.float32)
+    except TypeError:
+        pass
+    raise DMLCError(f"dense_dtype must be float32 or bfloat16, got {d}")
+
+
+def _aligned_empty(shape, dtype, pin: bool = False) -> np.ndarray:
+    """C-contiguous uninitialised array whose base address is 64-byte
+    aligned (the native fills require it); pinned (page-locked) memory
+    when ``pin``, so host->device copies can run asynchronously. The
+    returned array keeps its pinned torch storage alive."""
+    dtype = np.dtype(dtype)
+    nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+    if pin:
+        raw = torch.empty(nbytes + 64, dtype=torch.uint8,
+                          pin_memory=True).numpy()
+    else:
+        raw = np.empty(nbytes + 64, np.uint8)
+    off = (-raw.ctypes.data) % 64
+    return raw[off:off + nbytes].view(dtype).reshape(shape)
+
+
+@dataclass
+class PaddedBatch:
+    """Static-shape CSR batch; named arrays lead with the device axis D.
+
+    row/col/val: [D, NNZ] local row id, column, value (padding nonzeros
+    have row == R); label/weight: [D, R] (weight 0 marks padding rows);
+    nrows: [D]; qid: [D, R] or None; field: [D, NNZ] or None.
+
+    Packed transfer layout: ``big`` [D, Kb, NNZ] int32 stacks row/col/val
+    (f32 bits)[/field] and ``aux`` [D, K, R] int32 stacks label bits/
+    weight bits[/qid]/nrows plane, shard-major. Host batches carry both
+    the packs and named views into them; device batches carry only the
+    packs, which consumers decode with :func:`unpack_shard`."""
+    row: Any = None
+    col: Any = None
+    val: Any = None
+    label: Any = None
+    weight: Any = None
+    nrows: Any = None
+    total_rows: int = 0
+    qid: Any = None
+    field: Any = None
+    big: Any = None
+    aux: Any = None
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.aux.shape[2] if self.label is None else \
+            self.label.shape[1]
+
+    @property
+    def nnz_bucket(self) -> int:
+        return self.big.shape[2] if self.row is None else self.row.shape[1]
+
+    def tree(self) -> Dict[str, Any]:
+        """The batch as a flat dict: the packed leaves when packed, the
+        named leaves otherwise."""
+        if self.aux is not None:
+            return {"big": self.big, "aux": self.aux}
+        t = {"row": self.row, "col": self.col, "val": self.val,
+             "label": self.label, "weight": self.weight,
+             "nrows": self.nrows}
+        if self.qid is not None:
+            t["qid"] = self.qid
+        if self.field is not None:
+            t["field"] = self.field
+        return t
+
+
+@dataclass
+class DenseBatch:
+    """Dense layout for low-dimensional data: x is [D, R, F] (float32 or
+    bfloat16; bf16 bits as uint16 on the host), ``aux`` packs
+    label/weight[/qid]/nrows as in :class:`PaddedBatch`."""
+    x: Any = None
+    label: Any = None
+    weight: Any = None
+    nrows: Any = None
+    total_rows: int = 0
+    qid: Any = None
+    aux: Any = None
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.aux.shape[2] if self.label is None else \
+            self.label.shape[1]
+
+    @property
+    def num_features(self) -> int:
+        return self.x.shape[2]
+
+    def tree(self) -> Dict[str, Any]:
+        """The batch as a flat dict: x and aux when packed, the named
+        leaves otherwise."""
+        if self.aux is not None:
+            return {"x": self.x, "aux": self.aux}
+        t = {"x": self.x, "label": self.label, "weight": self.weight,
+             "nrows": self.nrows}
+        if self.qid is not None:
+            t["qid"] = self.qid
+        return t
+
+
+# -- packed-batch helpers ----------------------------------------------------
+# Shard-major packs: aux [D, K, R], big [D, Kb, NNZ]. Plane order, aux:
+# 0=label (f32 bits), 1=weight (f32 bits), [2=qid], last=nrows plane (entry
+# [d, -1, 0] holds shard d's true row count). big: 0=row, 1=col, 2=val (f32
+# bits), [3=field]. Float planes travel as raw bits and are reinterpreted
+# (a view, not a cast) on either side.
+
+def _view_aux(aux: np.ndarray):
+    """Named [D, R] views over a host [D, K, R] aux pack."""
+    label = aux[:, 0].view(np.float32)
+    weight = aux[:, 1].view(np.float32)
+    qid = aux[:, 2] if aux.shape[1] == 4 else None
+    return aux, label, weight, qid
+
+
+def _view_big(big: np.ndarray):
+    """Named [D, NNZ] row/col/val[/field] views over a host [D, Kb, NNZ]
+    pack."""
+    field = big[:, 3] if big.shape[1] == 4 else None
+    return big[:, 0], big[:, 1], big[:, 2].view(np.float32), field
+
+
+def _pack_aux(label, weight, qid, nrows, D: int, R: int, emit_qid: bool,
+              aux=None):
+    """Assemble an aux pack from flat row arrays, reusing ``aux`` when its
+    shape fits. Returns (aux, label, weight, qid) with views [D, R]."""
+    K = 4 if emit_qid else 3
+    if aux is None or aux.shape != (D, K, R):
+        aux = _aligned_empty((D, K, R), np.int32)
+    _, label_v, weight_v, qid_v = _view_aux(aux)
+    label_v[:] = np.asarray(label).reshape(D, R)
+    weight_v[:] = np.asarray(weight).reshape(D, R)
+    if qid_v is not None:
+        qid_v[:] = np.asarray(qid).reshape(D, R)
+    aux[:, -1] = 0
+    aux[:, -1, 0] = nrows
+    return aux, label_v, weight_v, qid_v
+
+
+def _bitcast_f32(a):
+    if isinstance(a, np.ndarray):
+        return a.view(np.float32)
+    return a.view(torch.float32)
+
+
+def _unpack(tree: Dict[str, Any], sel, nrows_of) -> Dict[str, Any]:
+    """Shared plane decoding; ``sel(pack, i)`` slices plane i of a
+    shard-major pack, ``nrows_of`` reads the nrows plane."""
+    if "aux" not in tree:
+        return tree
+    aux = tree["aux"]
+    out = {}
+    if "x" in tree:
+        out["x"] = tree["x"]
+    if "big" in tree:
+        big = tree["big"]
+        out["row"] = sel(big, 0)
+        out["col"] = sel(big, 1)
+        out["val"] = _bitcast_f32(sel(big, 2))
+        if big.shape[-2] == 4:
+            out["field"] = sel(big, 3)
+    out["label"] = _bitcast_f32(sel(aux, 0))
+    out["weight"] = _bitcast_f32(sel(aux, 1))
+    if aux.shape[-2] == 4:
+        out["qid"] = sel(aux, 2)
+    out["nrows"] = nrows_of(sel(aux, aux.shape[-2] - 1))
+    return out
+
+
+def unpack_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Named leaves [D, ...] from a packed batch tree (nrows [D]); identity
+    for named trees. Views only; works on numpy and torch alike."""
+    return _unpack(tree, lambda a, i: a[:, i], lambda plane: plane[:, 0])
+
+
+def unpack_shard(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Named leaves of one shard (device axis already dropped: aux [K, R],
+    big [Kb, NNZ], x [R, F]; nrows a 0-d value)."""
+    return _unpack(tree, lambda a, i: a[i], lambda plane: plane[0])
+
+
+def _next_pow2(n: int, floor: int) -> int:
+    b = floor
+    while b < n:
+        b <<= 1
+    return b
+
+
+class _HostBufferPool:
+    """Shape-keyed free-list of host batch buffers. Buffers enter only
+    after their host->device copy has completed and only when no device
+    tensor aliases them; bounded per key."""
+
+    CAP = 4
+
+    def __init__(self):
+        self._pool: Dict[Any, list] = {}
+        self._lock = threading.Lock()
+
+    def pop(self, key):
+        with self._lock:
+            lst = self._pool.get(key)
+            return lst.pop() if lst else None
+
+    def put(self, key, arrs) -> None:
+        with self._lock:
+            lst = self._pool.setdefault(key, [])
+            if len(lst) < self.CAP:
+                lst.append(arrs)
+
+
+class NativeHostBatcher:
+    """Fixed-row-count host batches from the C++ PaddedBatcher
+    (cpp/src/batcher.h): next_meta() stages a batch, Python allocates (or
+    reuses) the staging buffers, and one GIL-free native pass fills them.
+    Layouts: ``csr`` (float32 values) and ``dense`` (float32 or bf16)."""
+
+    def __init__(self, uri: str, part: int = 0, npart: int = 1,
+                 fmt: str = "auto", nthread: int = 0,
+                 batch_rows: int = 65536, num_shards: int = 1,
+                 min_nnz_bucket: int = 4096, layout: str = "auto",
+                 dense_max_features: int = 512, dense_dtype=np.float32,
+                 pin: bool = False):
+        if batch_rows % num_shards != 0:
+            raise DMLCError(
+                f"batch_rows={batch_rows} must divide by shards={num_shards}")
+        if layout not in ("auto", "csr", "dense"):
+            raise DMLCError(f"unknown layout {layout!r}")
+        self.dense_dtype = _dense_dtype_of(dense_dtype)
+        self._b = NativeBatcher(uri, part=part, npart=npart, fmt=fmt,
+                                nthread=nthread, batch_rows=batch_rows,
+                                num_shards=num_shards,
+                                min_nnz_bucket=min_nnz_bucket)
+        self.batch_rows = batch_rows
+        self.num_shards = num_shards
+        self.layout = layout
+        self.dense_max_features = dense_max_features
+        self.pin = pin
+        self._num_features: Optional[int] = None
+        # plane presence pins on the first batch so batch structure stays
+        # static for the whole stream
+        self._emit_qid: Optional[bool] = None
+        self._emit_field: Optional[bool] = None
+        self._pool = _HostBufferPool()
+
+    def _empty(self, shape, dtype) -> np.ndarray:
+        return _aligned_empty(shape, dtype, pin=self.pin)
+
+    def next_batch(self):
+        """The next static-shape host batch (None at end)."""
+        meta = self._b.next_meta()
+        if meta is None:
+            return None
+        take, bucket, max_index, has_qid, has_field = meta
+        if self._emit_qid is None:
+            self._emit_qid, self._emit_field = has_qid, has_field
+        elif (has_qid and not self._emit_qid) or (
+                has_field and not self._emit_field):
+            raise DMLCError(
+                "qid/field column appeared mid-stream after the batch "
+                "structure was pinned without it; order the inputs so the "
+                "first batch carries the column")
+        has_qid, has_field = self._emit_qid, self._emit_field
+        D = self.num_shards
+        R = self.batch_rows // D
+        ka = 4 if has_qid else 3
+        if self.layout == "auto":
+            # decided once, on the first batch; field-aware data has no
+            # dense representation
+            self.layout = ("dense" if not has_field
+                           and max_index + 1 <= self.dense_max_features
+                           else "csr")
+        elif self.layout == "dense" and has_field:
+            raise DMLCError(
+                "field ids have no dense layout; pass layout='csr' for "
+                "field-aware (libfm) data")
+        if self.layout == "dense":
+            if self._num_features is None:
+                self._num_features = max(int(max_index) + 1, 1)
+            F = self._num_features
+            pooled = self._pool.pop(("dense", F))
+            if pooled is not None:
+                x, aux, nrows = pooled
+            else:
+                x = self._empty((self.batch_rows, F), self.dense_dtype)
+                aux, nrows = None, np.empty(D, np.int32)
+            if aux is None or aux.shape[1] != ka:
+                aux = self._empty((D, ka, R), np.int32)
+            self._b.fill_dense_packed(x, aux, nrows)
+            _, label, weight, qid = _view_aux(aux)
+            return DenseBatch(x=x.reshape(D, R, F), label=label,
+                              weight=weight, nrows=nrows,
+                              total_rows=int(take), qid=qid, aux=aux)
+        kb = 4 if has_field else 3
+        pooled = self._pool.pop(("csr", bucket))
+        if pooled is not None:
+            big, aux, nrows = pooled
+        else:
+            big, aux, nrows = None, None, np.empty(D, np.int32)
+        if big is None or big.shape[1] != kb:
+            big = self._empty((D, kb, bucket), np.int32)
+        if aux is None or aux.shape[1] != ka:
+            aux = self._empty((D, ka, R), np.int32)
+        self._b.fill_packed(big, aux, nrows)
+        row, col, val, field = _view_big(big)
+        _, label, weight, qid = _view_aux(aux)
+        return PaddedBatch(row=row, col=col, val=val, label=label,
+                           weight=weight, nrows=nrows,
+                           total_rows=int(take), qid=qid, field=field,
+                           big=big, aux=aux)
+
+    def recycle(self, batch) -> None:
+        """Return a consumed host batch's buffers for reuse. The caller
+        guarantees that the batch's host->device copy has completed and
+        that no device tensor aliases the buffers."""
+        if not isinstance(getattr(batch, "aux", None), np.ndarray):
+            return
+        if isinstance(batch, DenseBatch):
+            self._pool.put(("dense", batch.x.shape[-1]),
+                           (batch.x.reshape(self.batch_rows, -1),
+                            batch.aux, batch.nrows))
+        else:
+            self._pool.put(("csr", batch.big.shape[-1]),
+                           (batch.big, batch.aux, batch.nrows))
+
+    def reset(self) -> None:
+        """Restart from the first row (new epoch); the pool survives."""
+        self._b.before_first()
+
+    def set_epoch(self, epoch: int) -> bool:
+        """Pin the shuffle permutation the next reset() samples."""
+        return self._b.set_epoch(epoch)
+
+    def bytes_read(self) -> int:
+        """Bytes consumed from the source so far."""
+        return self._b.bytes_read()
+
+    def close(self) -> None:
+        """Free the native handle (idempotent)."""
+        self._b.close()
+
+
+class DeviceRowBlockIter:
+    """Row-block iterator whose batches live on the device (the port of
+    the reference's DeviceRowBlockIter, one device).
+
+    Iterate to get :class:`PaddedBatch` / :class:`DenseBatch` objects whose
+    ``big``/``aux``/``x`` are tensors on ``device``; ``before_first()``,
+    ``state()``/``restore()``, ``bytes_read()`` and ``close()`` behave as in
+    the reference. With ``prefetch >= 1`` a staging thread parses and fills
+    while a transfer thread copies, ``prefetch`` batches deep; with
+    ``prefetch=0`` everything runs inline on the caller's thread.
+
+    ``device`` defaults to ``cuda`` and raises when CUDA is missing; pass
+    ``device="cpu"`` to run on the CPU. ``fmt`` "crec"/"recd", ``index64``
+    and ``csr_val_dtype="bf16"`` are refused until their slice lands."""
+
+    _SHUTDOWN = object()
+
+    def __init__(self, uri: str, part: int = 0, npart: int = 1,
+                 fmt: str = "auto", batch_rows: int = 65536,
+                 mesh=None, min_nnz_bucket: int = 4096,
+                 index64: bool = False, nthread: int = 0,
+                 prefetch: int = 2, layout: str = "auto",
+                 dense_max_features: int = 512, dense_dtype=np.float32,
+                 csr_val_dtype: str = "f32", device=None):
+        num_shards = local_device_count(mesh)
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        path_part = uri.split("?", 1)[0].split("#", 1)[0]
+        if fmt == "auto" and path_part.endswith(".drec"):
+            fmt = "recd"
+        elif fmt == "auto" and path_part.endswith(".crec"):
+            fmt = "crec"
+        elif fmt == "auto" and path_part.endswith(".rec"):
+            fmt = "rec"
+        lane = ("ROADMAP.md queue 1, 'DeviceRowBlockIter lanes: crec, recd, "
+                "index64, bf16 values'")
+        if fmt in ("crec", "recd"):
+            raise DMLCError(f"fmt={fmt!r} is not ported yet ({lane})")
+        if index64:
+            raise DMLCError(f"index64=True is not ported yet ({lane})")
+        if csr_val_dtype != "f32":
+            raise DMLCError(
+                f"csr_val_dtype={csr_val_dtype!r} is not ported yet ({lane})")
+        self.batch_rows = batch_rows
+        # determinism keys for mid-epoch resume (state()/restore())
+        self._identity = {"uri": uri, "part": part, "npart": npart,
+                          "fmt": fmt, "batch_rows": batch_rows}
+        self.batcher = NativeHostBatcher(
+            uri, part=part, npart=npart, fmt=fmt, nthread=nthread,
+            batch_rows=batch_rows, num_shards=num_shards,
+            min_nnz_bucket=min_nnz_bucket, layout=layout,
+            dense_max_features=dense_max_features, dense_dtype=dense_dtype,
+            pin=self.device.type == "cuda")
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._prefetch = prefetch
+        self._host_q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
+        self._queue: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
+        self._thread: Optional[threading.Thread] = None
+        self._xfer_thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self.batches_consumed = 0
+        self._skip_batches = 0
+        self._epoch = 0
+
+    # -- staging threads -----------------------------------------------------
+    # Queue ops are stop-aware, so a close-time drain cannot leave a peer
+    # blocked forever on a queue it emptied.
+    def _put_stop(self, q: "queue.Queue", item) -> bool:
+        while True:
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                if self._stop.is_set():
+                    return False
+
+    def _get_stop(self, q: "queue.Queue"):
+        while True:
+            try:
+                return q.get(timeout=0.05)
+            except queue.Empty:
+                if self._stop.is_set():
+                    return self._SHUTDOWN
+
+    def _skip_prefix(self) -> None:
+        """Mid-epoch resume: parse and discard the recorded prefix (never
+        transferred, so its buffers recycle at once)."""
+        skip, self._skip_batches = self._skip_batches, 0
+        for i in range(skip):
+            if self._stop.is_set():
+                return
+            batch = self.batcher.next_batch()
+            if batch is None:
+                raise DMLCError(
+                    f"restore: resume point ({skip} batches) is past "
+                    f"end-of-data (got {i}); the checkpoint and the data "
+                    f"stream disagree")
+            self.batcher.recycle(batch)
+
+    def _stage(self):
+        """One host batch (parse + fill), timed as ``device.stage``."""
+        if not telemetry.enabled():
+            return self.batcher.next_batch()
+        t0 = time.perf_counter()
+        batch = self.batcher.next_batch()
+        dur_us = (time.perf_counter() - t0) * 1e6
+        if batch is not None:
+            _get_lane_metrics()["stage_us"].observe(dur_us)
+            telemetry.emit_span("device.stage", t0 * 1e6, dur_us,
+                                rows=batch.total_rows)
+        return batch
+
+    def _parse_loop(self) -> None:
+        try:
+            self._skip_prefix()
+            m = _get_lane_metrics()
+            while not self._stop.is_set():
+                batch = self._stage()
+                if not self._put_stop(self._host_q, batch):
+                    return
+                m["host_q"].set(self._host_q.qsize())
+                if batch is None:
+                    return
+        except BaseException as e:  # handed on through the transfer stage
+            self._put_stop(self._host_q, e)
+
+    def _transfer_loop(self) -> None:
+        try:
+            m = _get_lane_metrics()
+            while not self._stop.is_set():
+                item = self._get_stop(self._host_q)
+                if item is self._SHUTDOWN:
+                    return
+                if isinstance(item, BaseException) or item is None:
+                    self._put_stop(self._queue, item)
+                    return
+                out = self._device_put(item)
+                if not self._put_stop(self._queue, out):
+                    return
+                m["ready_q"].set(self._queue.qsize())
+                m["host_q"].set(self._host_q.qsize())
+        except BaseException as e:
+            self._put_stop(self._queue, e)
+
+    def _ensure_started(self) -> None:
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._parse_loop,
+                                            daemon=True)
+            self._xfer_thread = threading.Thread(target=self._transfer_loop,
+                                                 daemon=True)
+            self._thread.start()
+            self._xfer_thread.start()
+
+    # -- host -> device -------------------------------------------------------
+    def _copy(self, tree):
+        """Start the host->device copies; returns (device tree, event)."""
+        if self._stream is None:
+            # CPU: alias the staging memory (the zero-copy counterpart)
+            return {k: torch.from_numpy(v) for k, v in tree.items()}, None
+        with torch.cuda.stream(self._stream):
+            out = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+                   for k, v in tree.items()}
+            ev = torch.cuda.Event()
+            ev.record(self._stream)
+        return out, ev
+
+    def _device_put(self, host):
+        """Copy one host batch to the device. Returns (device batch, copy
+        event or None). Waits for the copy before returning — as the
+        reference blocks on its transfer — so the staging buffers go back
+        to the pool here, after the copy's event has completed."""
+        m = _get_lane_metrics()
+        tree = host.tree()
+        nbytes = sum(int(v.nbytes) for v in tree.values())
+        tel = telemetry.enabled()
+        try:
+            with telemetry.span("device.put", bytes=nbytes):
+                t0 = time.perf_counter()
+                out, ev = self._copy(tree)
+                t1 = time.perf_counter()
+                if ev is not None:
+                    ev.synchronize()
+                t2 = time.perf_counter()
+        except BaseException:
+            m["failures"].inc()
+            telemetry.flight_dump("device-put-failure")
+            raise
+        if tel:
+            m["transfer_us"].observe((t2 - t0) * 1e6)
+            m["submit_us"].observe((t1 - t0) * 1e6)
+            m["block_us"].observe((t2 - t1) * 1e6)
+            telemetry.emit_span("device.put.submit", t0 * 1e6,
+                                (t1 - t0) * 1e6)
+            telemetry.emit_span("device.put.block", t1 * 1e6,
+                                (t2 - t1) * 1e6)
+        m["batches"].inc()
+        m["bytes"].inc(nbytes)
+        if ev is None:
+            m["zc_batches"].inc()
+        else:
+            self.batcher.recycle(host)
+        if isinstance(host, DenseBatch) and host.x.dtype == BF16_STORAGE:
+            out["x"] = out["x"].view(torch.bfloat16)
+        return type(host)(total_rows=host.total_rows, **out), ev
+
+    def _hand_over(self, item):
+        """Make a transferred batch safe to use on the consumer's current
+        stream: wait for the copy, and tell the allocator that the side-
+        stream tensors are in use there."""
+        batch, ev = item
+        if ev is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(ev)
+            for t in batch.tree().values():
+                t.record_stream(consumer)
+        return batch
+
+    def _iter_sync(self) -> Iterator:
+        """prefetch=0: parse, fill, copy and hand over on the caller's
+        thread."""
+        self._skip_prefix()
+        while True:
+            host = self._stage()
+            if host is None:
+                return
+            item = self._device_put(host)
+            self.batches_consumed += 1
+            yield self._hand_over(item)
+
+    def __iter__(self) -> Iterator:
+        if self._prefetch == 0:
+            yield from self._iter_sync()
+            return
+        self._ensure_started()
+        m = _get_lane_metrics()
+        while True:
+            # device.wait: the consumer idle because the next batch was
+            # not ready yet
+            t0 = time.perf_counter()
+            item = self._queue.get()
+            if telemetry.enabled():
+                dur_us = (time.perf_counter() - t0) * 1e6
+                m["wait_us"].observe(dur_us)
+                telemetry.emit_span("device.wait", t0 * 1e6, dur_us)
+            m["ready_q"].set(self._queue.qsize())
+            if item is None or isinstance(item, BaseException):
+                self._thread = None
+                self._xfer_thread = None
+                if item is None:
+                    return
+                raise item
+            self.batches_consumed += 1
+            yield self._hand_over(item)
+
+    # -- mid-epoch checkpoint/resume ----------------------------------------
+    def state(self) -> Dict[str, Any]:
+        """Resume point: batches yielded this epoch plus the determinism
+        keys (uri/part/npart/fmt/batch_rows) that make it a position."""
+        return dict(self._identity, batches_consumed=self.batches_consumed,
+                    epoch=self._epoch)
+
+    def restore(self, state: Dict[str, Any]) -> None:
+        """Rewind to the epoch start and skip ``batches_consumed`` batches
+        host-side, so iteration resumes where state() was taken. Raises if
+        a determinism key disagrees with this iterator, or — at iteration
+        time — if the resume point is past end-of-data."""
+        for key, ours in self._identity.items():
+            theirs = state.get(key, ours)
+            if theirs != ours:
+                raise DMLCError(
+                    f"restore: checkpoint was taken with {key}={theirs!r} "
+                    f"but this iterator uses {ours!r}; resuming a batch "
+                    f"count across a different stream slicing would read "
+                    f"the wrong rows")
+        self._epoch = int(state.get("epoch", 0))
+        self._reset_stream()
+        self._skip_batches = int(state.get("batches_consumed", 0))
+        self.batches_consumed = self._skip_batches
+
+    def _join_threads(self) -> None:
+        self._stop.set()
+        for th, q in ((self._thread, self._host_q),
+                      (self._xfer_thread, self._queue)):
+            if th is None:
+                continue
+            while th.is_alive():
+                try:  # drain so a blocked put can finish
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                th.join(timeout=0.02)
+        self._thread = None
+        self._xfer_thread = None
+        for q in (self._host_q, self._queue):
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+        self._stop.clear()
+
+    def before_first(self) -> None:
+        """Restart iteration as the next epoch."""
+        self._epoch += 1
+        self._reset_stream()
+
+    def _reset_stream(self) -> None:
+        self._join_threads()
+        self.batcher.set_epoch(self._epoch)
+        self.batcher.reset()
+        self.batches_consumed = 0
+        self._skip_batches = 0
+
+    def bytes_read(self) -> int:
+        """Bytes consumed from the source so far."""
+        return self.batcher.bytes_read()
+
+    def close(self) -> None:
+        """Stop the staging threads and free native resources
+        (idempotent)."""
+        self._join_threads()
+        self.batcher.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
