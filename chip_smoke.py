@@ -12,12 +12,17 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  (``cpp/``), both from the checkout's sources into
                  ``dmlc_core_tpu_torch/_build/``; seconds each and ptxas info.
 3. ``kernels`` — every hand-written kernel against its plain PyTorch version
-                 on the card: the bench probe shape, the training shape,
-                 duplicates, padding and out-of-range ids, empty input;
+                 on the card: the bench probe shape, the training shape
+                 (also with its nonzeros permuted), duplicates, padding
+                 and out-of-range ids, empty input, uneven libsvm-like
+                 rows with empty ones, 27 columns, 20,000 columns;
                  kernel, plain-version and library-call device times
                  (median of 30 runs queued behind a device sleep, L2
-                 flushed between runs, CUDA events), the wrapper's host
-                 time per call, and the memory-traffic bound.
+                 flushed between runs, CUDA events), and beside them the
+                 kernel's previous version (``PREVIOUS_KERNEL_CU``, built
+                 and timed in the same run); the wrappers' host time per
+                 call, the memory-traffic bound and the kernel's share of
+                 it.
 4. ``train``   — the main path: a HIGGS-shaped libsvm file (28 features,
                  524,288 rows) through ``DeviceRowBlockIter`` into
                  ``LinearLearner(28, margin_path="dense")`` with
@@ -36,6 +41,7 @@ the last line; without CUDA the script exits non-zero at once.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -137,16 +143,37 @@ def host_us(fn, runs: int = 200) -> float:
 
 
 # -- phase 3: kernels against their plain versions --------------------------
-def padded_batch_csr(rng, rows: int, bucket: int):
-    """A PaddedBatch-shaped shard: every row holds all FEATURES columns (as
-    a dense HIGGS row does), rows in order, then padding nonzeros (row ==
-    rows, col 0, val 0) up to ``bucket``."""
-    nnz = rows * FEATURES
+def padded_batch_csr(rng, rows: int, bucket: int,
+                     features: int = FEATURES):
+    """A PaddedBatch-shaped shard: every row holds all ``features`` columns
+    (as a dense HIGGS row does), rows in order, then padding nonzeros (row
+    == rows, col 0, val 0) up to ``bucket``."""
+    nnz = rows * features
     row = np.full(bucket, rows, np.int32)
     col = np.zeros(bucket, np.int32)
     val = np.zeros(bucket, np.float32)
-    row[:nnz] = np.repeat(np.arange(rows, dtype=np.int32), FEATURES)
-    col[:nnz] = np.tile(np.arange(FEATURES, dtype=np.int32), rows)
+    row[:nnz] = np.repeat(np.arange(rows, dtype=np.int32), features)
+    col[:nnz] = np.tile(np.arange(features, dtype=np.int32), rows)
+    val[:nnz] = rng.standard_normal(nnz).astype(np.float32)
+    return row, col, val
+
+
+def uneven_csr(rng, lengths, features: int):
+    """A PaddedBatch-shaped shard with ``lengths[r]`` distinct columns in
+    row r (sorted, as a libsvm line lists them), rows in order, padding
+    up to the next power of two."""
+    rows, nnz = len(lengths), int(lengths.sum())
+    bucket = 1 << max(nnz - 1, 1).bit_length()
+    row = np.full(bucket, rows, np.int32)
+    col = np.zeros(bucket, np.int32)
+    val = np.zeros(bucket, np.float32)
+    row[:nnz] = np.repeat(np.arange(rows, dtype=np.int32), lengths)
+    # distinct columns per row: the lowest keys of a random draw
+    keys = rng.random((rows, features))
+    cols = np.argsort(keys, axis=1)
+    col[:nnz] = np.concatenate(
+        [np.sort(cols[r, :n]) for r, n in enumerate(lengths)]
+    ).astype(np.int32)
     val[:nnz] = rng.standard_normal(nnz).astype(np.float32)
     return row, col, val
 
@@ -197,6 +224,27 @@ def kernel_cases(rng):
     empty = np.zeros(0, np.int32)
     cases.append(("empty_64x28", empty, empty, np.zeros(0, np.float32), 64,
                   FEATURES, "exact", True))
+    # libsvm-like: rows of 0..28 distinct columns, 512 empty rows in the
+    # middle, padding up to the bucket
+    rows = 8192
+    lengths = rng.integers(0, FEATURES + 1, rows)
+    lengths[3000:3512] = 0
+    row, col, val = uneven_csr(rng, lengths, FEATURES)
+    cases.append(("libsvm_uneven_8192x28", row, col, val, rows, FEATURES,
+                  "exact", True))
+    # 27 columns: a row's span is not a multiple of 16 bytes
+    row, col, val = padded_batch_csr(rng, 16384, 1 << 19, features=27)
+    cases.append(("f27_16384x27", row, col, val, 16384, 27, "exact", True))
+    # wide rows: about 670 zero cells between nonzeros
+    lengths = np.full(1024, 30)
+    row, col, val = uneven_csr(rng, lengths, 20000)
+    cases.append(("wide_1024x20000", row, col, val, 1024, 20000, "exact",
+                  True))
+    # the training batch with its nonzeros (padding included) permuted
+    train = next(c for c in cases if c[0] == "train_65536x28")
+    perm = rng.permutation(len(train[1]))
+    cases.append(("train_unsorted_65536x28", train[1][perm], train[2][perm],
+                  train[3][perm], BATCH_ROWS, FEATURES, "exact", True))
     return cases
 
 
@@ -237,6 +285,121 @@ def bound_ms(row, col, rows: int, features: int) -> "tuple[float, str]":
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def check_case(got, want, tol, r, c, v, R, F, rec: dict,
+               prefix: str = "") -> bool:
+    """Whether ``got`` matches the plain version ``want`` at ``tol`` (see
+    kernel_cases); notes the error in ``rec`` under ``prefix``."""
+    rec[prefix + "max_abs_err"] = (float((got - want).abs().max())
+                                   if got.numel() else 0.0)
+    if tol == "exact":
+        return bool(torch.equal(got, want))
+    if tol == "bound":
+        ok, rec[prefix + "err_share_of_bound"] = check_against_f64(
+            got, r, c, v, R, F)
+        return ok
+    return bool(torch.allclose(got, want, rtol=tol, atol=tol))
+
+
+# The kernel's previous version, built and timed beside the current one on
+# the same inputs: the output zeroed by torch.zeros, then a grid-stride
+# scatter, one thread per nonzero, that loads the column id and value only
+# after the row id, and adds with atomicAdd.
+PREVIOUS_KERNEL_CU = r"""
+#include <cuda_runtime.h>
+namespace {
+__global__ void scatter(const int* __restrict__ row,
+                        const int* __restrict__ col,
+                        const float* __restrict__ val, long long nnz,
+                        int num_rows, int num_features,
+                        float* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < nnz; i += stride) {
+    const int r = row[i];
+    if ((unsigned)r >= (unsigned)num_rows) continue;
+    const int c = col[i];
+    if ((unsigned)c < (unsigned)num_features)
+      atomicAdd(out + (long long)r * num_features + c, val[i]);
+  }
+}
+}  // namespace
+extern "C" int previous_scatter_f32(const void* row, const void* col,
+                                    const void* val, long long nnz,
+                                    int num_rows, int num_features,
+                                    void* out, void* stream) {
+  long long blocks = (nnz + 255) / 256;
+  if (blocks > 132 * 64) blocks = 132 * 64;
+  scatter<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const int*)row, (const int*)col, (const float*)val, nnz, num_rows,
+      num_features, (float*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_previous_kernel_build() -> "tuple[subprocess.Popen, str]":
+    """Start nvcc on PREVIOUS_KERNEL_CU (in the package's build directory);
+    returns the process and the library it writes."""
+    os.makedirs(hk.BUILD_DIR, exist_ok=True)
+    src = os.path.join(hk.BUILD_DIR, "previous_scatter.cu")
+    lib = os.path.join(hk.BUILD_DIR, "libprevious_scatter.so")
+    with open(src, "w") as f:
+        f.write(PREVIOUS_KERNEL_CU)
+    proc = subprocess.Popen(
+        [hk._nvcc(), *hk.NVCC_ARCH, "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-o", lib, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return proc, lib
+
+
+_previous_scatter = None
+
+
+def load_previous_kernel(proc: subprocess.Popen, lib: str) -> None:
+    global _previous_scatter
+    log = proc.communicate(timeout=600)[0]
+    require(proc.returncode == 0, "previous kernel build", log=log[-2000:])
+    cdll = ctypes.CDLL(lib)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    cdll.previous_scatter_f32.argtypes = [vp, vp, vp, ctypes.c_longlong,
+                                          i32, i32, vp, vp]
+    cdll.previous_scatter_f32.restype = i32
+    _previous_scatter = cdll.previous_scatter_f32
+
+
+def previous_kernel(r, c, v, R: int, F: int) -> torch.Tensor:
+    """The kernel's previous version on the current stream, as its wrapper
+    ran it: torch.zeros, then the scatter."""
+    out = torch.zeros((R, F), dtype=torch.float32, device=r.device)
+    if r.numel():
+        err = _previous_scatter(r.data_ptr(), c.data_ptr(), v.data_ptr(),
+                                r.numel(), R, F, out.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+        require(err == 0, "previous kernel launch", err=err)
+    return out
+
+
+def yardsticks(r, c, v, R, F) -> dict:
+    """What this timing method gives two plain PyTorch calls on the card:
+    ``floor_ms``, a one-element add (the method's floor: events, launch,
+    an idle kernel); ``stream_ms``, one elementwise op over the kept
+    nonzeros that reads their row ids, column ids (both viewed as f32)
+    and values and writes one f32 each: 3 x 4 B read and 4 B written per
+    kept nonzero, the bound's bytes less the padding's row ids, streamed
+    in one pass. Neither computes the kernel's function."""
+    one = torch.zeros(1, device="cuda")
+    kept = R * F  # the training bucket's rows hold every column
+    rows, cols, vals = (t[:kept] for t in (r, c, v))
+    out = torch.empty(kept, device="cuda")
+
+    def stream():
+        torch.addcmul(vals, rows.view(torch.float32),
+                      cols.view(torch.float32), out=out)
+    return {"floor_ms": time_ms(lambda: one.add_(1)),
+            "stream_ms": time_ms(stream),
+            "stream_bytes": 16 * kept}
+
+
 def kernels_phase() -> dict:
     rng = np.random.default_rng(0)
     results = []
@@ -250,25 +413,28 @@ def kernels_phase() -> dict:
         require(got.shape == (R, F) and got.device.type == "cuda",
                 "kernel output shape/device", case=name,
                 shape=tuple(got.shape))
-        err = float((got - want).abs().max()) if got.numel() else 0.0
         rec = {"case": name, "rows": R, "features": F, "nnz": len(row),
-               "tol": tol, "max_abs_err": err}
-        if tol == "exact":
-            ok = bool(torch.equal(got, want))
-        elif tol == "bound":
-            ok, rec["err_share_of_bound"] = check_against_f64(
-                got, r, c, v, R, F)
+               "tol": tol}
+        ok = check_case(got, want, tol, r, c, v, R, F, rec)
+        if tol == "bound":
             plain_ok, rec["plain_err_share_of_bound"] = check_against_f64(
                 want, r, c, v, R, F)
             require(plain_ok, "plain version outside the f32 bound", **rec)
-        else:
-            ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
         rec["match"] = ok
+        require(ok, "kernel disagrees with its plain version", **rec)
+        # the previous version on the same inputs
+        require(check_case(previous_kernel(r, c, v, R, F), want, tol, r, c,
+                           v, R, F, rec, "previous_kernel_"),
+                "previous kernel disagrees", **rec)
         if len(row):
             rec["kernel_ms"] = time_ms(
                 lambda: hk.csr_to_dense_kernel(r, c, v, R, F))
+            rec["previous_kernel_ms"] = time_ms(
+                lambda: previous_kernel(r, c, v, R, F))
             rec["kernel_host_us"] = host_us(
                 lambda: hk.csr_to_dense_kernel(r, c, v, R, F))
+            rec["previous_kernel_host_us"] = host_us(
+                lambda: previous_kernel(r, c, v, R, F))
             rec["plain_ms"] = time_ms(
                 lambda: hk.csr_to_dense_reference(r, c, v, R, F))
             rec["library_ms"] = None
@@ -288,8 +454,12 @@ def kernels_phase() -> dict:
             b_ms, b_by = bound_ms(r, c, R, F)
             rec["bound_us"] = b_ms * 1e3
             rec["bound_by"] = b_by
+            rec["bound_share"] = b_ms / rec["kernel_ms"]
+            rec["previous_kernel_bound_share"] = (
+                b_ms / rec["previous_kernel_ms"])
+            if name == "train_65536x28":
+                rec.update(yardsticks(r, c, v, R, F))
         results.append(rec)
-        require(ok, "kernel disagrees with its plain version", **rec)
     emit({"phase": "kernels", "cases": results})
     return {rec["case"]: rec for rec in results}
 
@@ -450,7 +620,10 @@ def main() -> int:
           "capability": list(torch.cuda.get_device_capability(0))})
 
     t0 = time.perf_counter()
+    # every nvcc at once: the kernel's and its previous version's
+    previous = start_previous_kernel_build()
     kernel_log = hk.build() or ""
+    load_previous_kernel(*previous)
     t1 = time.perf_counter()
     native.build()
     t2 = time.perf_counter()

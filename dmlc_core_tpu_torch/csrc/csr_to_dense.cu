@@ -9,61 +9,74 @@
 //
 // Design. The TPU version recasts the scatter as a one-hot matmul on the
 // MXU because the TPU has no fast random writes. Hopper has fast global
-// atomics, so this is the direct form: a grid-stride loop, one thread per
-// nonzero, an atomicAdd (a fire-and-forget RED, since the result is
-// unused) into an output the caller has zeroed. The kernel allocates
-// nothing and launches on the caller's stream.
+// atomics, so this is the direct form: the output is zeroed with
+// cudaMemsetAsync, then one thread per nonzero loads its row id, column
+// id and value at once (three independent loads, none waiting on
+// another) and adds the value with atomicAdd (a fire-and-forget RED into
+// L2, since the result is unused). The loads are streaming (__ldcs,
+// evict-first): the inputs are read once, and the output's lines, which
+// the REDs update, stay in L2. Both steps go on the caller's stream; the
+// function allocates nothing.
+//
+// Why two steps and atomics: a one-pass design that writes each cell once
+// in the order of the nonzeros needs a grid barrier to learn whether that
+// order holds, and on an H100 the barrier costs what the zeroing saves
+// (experiments/csr_to_dense_ordered/ times it beside this kernel).
 //
 // Bound. The work is memory traffic: each nonzero's row id is read, the
-// column id only where the row is in range and the value only where the
-// nonzero is kept, and the [num_rows, num_features] f32 output is written
-// once (and zeroed once before, by the caller). At the training shape,
-// 65,536 rows x 28 features (1,835,008 kept nonzeros) in a 2,097,152-entry
-// nnz bucket, that is 4 B x 2,097,152 + 8 B x 1,835,008 = 23.1 MB of
-// reads and 7.3 MB of output, 30.4 MB or about 9.1 us at the H100 SXM's
-// 3.35 TB/s (11.3 us counting the zeroing pass). The f32 adds (one per
-// kept nonzero) are far below the card's rate. Atomics make the order of
-// duplicate sums vary from run to run; with no duplicates each cell gets
-// exactly one add onto zero and the result is exact.
+// column id where the row is in range and the value where the nonzero is
+// kept, and the [num_rows, num_features] f32 output is written once. At
+// the training shape, 65,536 rows x 28 features (1,835,008 kept nonzeros)
+// in a 2,097,152-entry nnz bucket, that is 4 B x 2,097,152 + 8 B x
+// 1,835,008 = 23.1 MB of reads and 7.3 MB of output, 30.4 MB or about
+// 9.1 us at the H100 SXM's 3.35 TB/s. This kernel also reads the
+// padding's column ids and values (2.1 MB there) and zeroes the output
+// first (7.3 MB more). The f32 adds (one per kept nonzero) are far below
+// the card's rate. Atomics make the order of duplicate sums vary from run
+// to run; with no duplicates each cell gets exactly one add onto zero and
+// the result is exact.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void csr_to_dense_f32_kernel(const int* __restrict__ row,
-                                        const int* __restrict__ col,
-                                        const float* __restrict__ val,
-                                        long long nnz, int num_rows,
-                                        int num_features,
-                                        float* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < nnz; i += stride) {
-    const int r = row[i];
-    if ((unsigned)r >= (unsigned)num_rows) continue;  // padding or invalid
-    const int c = col[i];
-    if ((unsigned)c < (unsigned)num_features) {
-      atomicAdd(out + (long long)r * num_features + c, val[i]);
-    }
-  }
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+    csr_to_dense_f32_kernel(const int* __restrict__ row,
+                            const int* __restrict__ col,
+                            const float* __restrict__ val, long long nnz,
+                            int num_rows, int num_features,
+                            float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= nnz) return;
+  const int r = __ldcs(row + i);
+  const int c = __ldcs(col + i);
+  const float v = __ldcs(val + i);
+  if ((unsigned)r < (unsigned)num_rows &&
+      (unsigned)c < (unsigned)num_features)
+    atomicAdd(out + (long long)r * num_features + c, v);
 }
 
 }  // namespace
 
-// Launches the scatter on `stream`; returns cudaGetLastError() (0 when the
-// launch was accepted). nnz must be > 0.
+// Zeroes `out` ([num_rows, num_features] f32) and scatters the nonzeros
+// into it, both on `stream`; returns the first CUDA error (0 when both
+// were accepted). With nnz == 0 only the zeroing runs.
 extern "C" int dct_csr_to_dense_f32(const void* row, const void* col,
                                     const void* val, long long nnz,
                                     int num_rows, int num_features,
                                     void* out, void* stream) {
-  const int threads = 256;
-  long long blocks = (nnz + threads - 1) / threads;
-  // enough blocks to fill 132 SMs many times over; the grid-stride loop
-  // covers the rest
-  if (blocks > 132 * 64) blocks = 132 * 64;
-  csr_to_dense_f32_kernel<<<(unsigned)blocks, threads, 0,
-                            (cudaStream_t)stream>>>(
-      (const int*)row, (const int*)col, (const float*)val, nnz, num_rows,
-      num_features, (float*)out);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, sizeof(float) * (size_t)num_rows * (size_t)num_features, st);
+  if (err == cudaSuccess && nnz > 0) {
+    const long long blocks = (nnz + kThreads - 1) / kThreads;
+    csr_to_dense_f32_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+        static_cast<const int*>(row), static_cast<const int*>(col),
+        static_cast<const float*>(val), nnz, num_rows, num_features,
+        static_cast<float*>(out));
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }

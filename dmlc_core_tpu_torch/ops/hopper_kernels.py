@@ -16,6 +16,7 @@ else.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -36,6 +37,7 @@ CSR_TO_DENSE_LIB = os.path.join(BUILD_DIR, "libcsr_to_dense.so")
 NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lib = None
+_launch_fn = None  # the library's dct_csr_to_dense_f32, bound once
 _lib_lock = threading.Lock()
 
 
@@ -62,17 +64,17 @@ def build() -> Optional[str]:
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    global _lib
+    global _lib, _launch_fn
     with _lib_lock:
         if _lib is None:
             build()
             cdll = ctypes.CDLL(CSR_TO_DENSE_LIB)
             vp = ctypes.c_void_p
-            cdll.dct_csr_to_dense_f32.argtypes = [
-                vp, vp, vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                vp, vp]
-            cdll.dct_csr_to_dense_f32.restype = ctypes.c_int
-            _lib = cdll
+            fn = cdll.dct_csr_to_dense_f32
+            fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_int, vp, vp]
+            fn.restype = ctypes.c_int
+            _launch_fn, _lib = fn, cdll
         return _lib
 
 
@@ -102,8 +104,9 @@ def csr_to_dense_kernel(row: torch.Tensor, col: torch.Tensor,
     duplicates summed.
 
     row, col: int32 [nnz]; val: float32 [nnz]; contiguous, on one device.
-    CUDA tensors launch ``csrc/csr_to_dense.cu`` on the current stream;
-    CPU tensors take :func:`csr_to_dense_reference`."""
+    CUDA tensors go to ``csrc/csr_to_dense.cu`` on the current stream (one
+    call: the output is zeroed, then the kernel scatters into it); CPU
+    tensors take :func:`csr_to_dense_reference`."""
     devices = {row.device, col.device, val.device}
     if devices == {torch.device("cpu")}:
         return csr_to_dense_reference(row, col, val, num_rows, num_features)
@@ -125,21 +128,27 @@ def csr_to_dense_kernel(row: torch.Tensor, col: torch.Tensor,
         raise DMLCError("csr_to_dense_kernel takes contiguous tensors")
     if num_rows < 0 or num_features < 0:
         raise DMLCError(f"bad output shape ({num_rows}, {num_features})")
-    out = torch.zeros((num_rows, num_features), dtype=torch.float32,
+    # the C function zeroes every cell before the scatter
+    out = torch.empty((num_rows, num_features), dtype=torch.float32,
                       device=row.device)
     nnz = row.numel()
-    if nnz == 0 or out.numel() == 0:
+    if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(row.device).cuda_stream
-    with torch.cuda.device(row.device):
-        err = _kernel_lib().dct_csr_to_dense_f32(
-            row.data_ptr(), col.data_ptr(), val.data_ptr(), nnz,
-            int(num_rows), int(num_features), out.data_ptr(), stream)
+    if _launch_fn is None:
+        _kernel_lib()
+    device = row.device.index
+    with (contextlib.nullcontext() if device == torch.cuda.current_device()
+          else torch.cuda.device(device)):
+        err = _launch_fn(row.data_ptr(), col.data_ptr(), val.data_ptr(),
+                         nnz, int(num_rows), int(num_features),
+                         out.data_ptr(),
+                         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise DMLCError(f"csr_to_dense kernel launch failed: CUDA error "
                         f"{err} (nnz={nnz}, out=({num_rows}, "
                         f"{num_features}))")
-    csr_to_dense_kernel.launches += 1
+    if nnz:
+        csr_to_dense_kernel.launches += 1
     return out
 
 

@@ -89,6 +89,93 @@ def test_kernel_refuses_bad_inputs(cuda_device):
     assert empty.shape == (3, 2) and float(empty.abs().sum()) == 0.0
 
 
+def padded(rng, lengths, F):
+    """Rows in order with ``lengths[r]`` distinct columns each (ascending,
+    as a libsvm line lists them), then padding (row == R, value 3.0) up to
+    the next power of two."""
+    R, nnz = len(lengths), int(sum(lengths))
+    bucket = 1 << max(nnz - 1, 1).bit_length()
+    row = np.full(bucket, R, np.int32)
+    col = np.zeros(bucket, np.int32)
+    val = np.full(bucket, 3.0, np.float32)
+    row[:nnz] = np.repeat(np.arange(R, dtype=np.int32), lengths)
+    col[:nnz] = np.concatenate(
+        [np.sort(rng.choice(F, n, replace=False)) for n in lengths]
+    ).astype(np.int32)
+    val[:nnz] = rng.normal(size=nnz).astype(np.float32)
+    return row, col, val
+
+
+def run_kernel(row, col, val, R, F, device):
+    """The kernel on the card and the plain version, on the same inputs."""
+    r, c, v = (torch.from_numpy(a).to(device) for a in (row, col, val))
+    return (hk.csr_to_dense_kernel(r, c, v, R, F),
+            hk.csr_to_dense_reference(r, c, v, R, F))
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("R,F", [(1000, 28), (333, 27), (64, 200)])
+def test_sorted_and_unsorted_match_plain_version(cuda_device, order, R, F):
+    rng = np.random.default_rng(R + F)
+    row, col, val = padded(rng, rng.integers(0, F + 1, R), F)
+    if order == "unsorted":
+        perm = rng.permutation(len(row))
+        row, col, val = row[perm], col[perm], val[perm]
+    got, want = run_kernel(row, col, val, R, F, cuda_device)
+    # one add per cell onto zero: exact in any order
+    assert torch.equal(got, want)
+
+
+def test_empty_middle_rows(cuda_device):
+    rng = np.random.default_rng(31)
+    lengths = rng.integers(1, 29, 700)
+    lengths[100:300] = 0  # a block of empty rows
+    lengths[401::7] = 0   # single empty rows
+    lengths[-70:] = 0     # and at the end, before the padding
+    row, col, val = padded(rng, lengths, 28)
+    got, want = run_kernel(row, col, val, 700, 28, cuda_device)
+    assert torch.equal(got, want)
+    assert float(got[100:300].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("R", [1, 3, 4, 65, 1027])
+def test_width_27_rows_not_16_byte_multiples(cuda_device, R):
+    rng = np.random.default_rng(R)
+    row, col, val = padded(rng, np.full(R, 27), 27)
+    got, want = run_kernel(row, col, val, R, 27, cuda_device)
+    assert torch.equal(got, want)
+
+
+def test_wide_rows(cuda_device):
+    # hundreds of zero cells between nonzeros
+    R, F = 70, 20000
+    rng = np.random.default_rng(5)
+    row, col, val = padded(rng, rng.integers(0, 40, R), F)
+    got, want = run_kernel(row, col, val, R, F, cuda_device)
+    assert torch.equal(got, want)
+
+
+def test_output_is_zeroed_on_the_card(cuda_device):
+    # the wrapper allocates with torch.empty: hand it a cached block full
+    # of NaNs, and every cell no nonzero reaches must still come out 0
+    R, F = 300, 28
+    junk = torch.full((R, F), float("nan"), device=cuda_device)
+    del junk
+    rng = np.random.default_rng(9)
+    row, col, val = padded(rng, rng.integers(0, 10, R), F)
+    before = hk.csr_to_dense_kernel.launches
+    got, want = run_kernel(row, col, val, R, F, cuda_device)
+    assert torch.equal(got, want)
+    assert hk.csr_to_dense_kernel.launches == before + 1
+    # no nonzeros: the output is zeroed and no kernel is launched
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    junk = torch.full((R, F), float("nan"), device=cuda_device)
+    del junk
+    out = hk.csr_to_dense_kernel(empty, empty, empty.float(), R, F)
+    assert float(out.abs().sum()) == 0.0
+    assert hk.csr_to_dense_kernel.launches == before + 1
+
+
 def batches(path, layout, dtype, device, prefetch=2):
     with di.DeviceRowBlockIter(path, batch_rows=128, layout=layout,
                                dense_dtype=dtype, min_nnz_bucket=64,

@@ -216,6 +216,10 @@ def test_kernel_source_is_cuda_for_hopper():
     src = open(hk.CSR_TO_DENSE_SOURCE).read()
     assert "__global__" in src and "atomicAdd" in src
     assert "_csr_scatter_kernel" in src  # names the TPU kernel it replaces
+    # the column id and value are loaded beside the row id, not after it,
+    # as streaming loads; the C function zeroes the output itself
+    assert "__ldcs(col + i)" in src and "__ldcs(val + i)" in src
+    assert "cudaMemsetAsync" in src
     assert "arch=compute_90a,code=sm_90a" in hk.NVCC_ARCH
     assert hk.CSR_TO_DENSE_LIB.startswith(BUILD_DIR)
 
