@@ -32,6 +32,22 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  just after. The loss trajectory and final weights must
                  match the segment-sum path on the card and the port's CPU
                  run (plain versions) at rtol 1e-5 (atol 1e-7 on weights).
+5. ``serve``   — the rest of the main path: the trained parameters through
+                 ``save_checkpoint``/``restore_checkpoint`` (back on the
+                 card bit for bit) and ``save_model``; an in-process
+                 ``ScoringServer`` on the default device scoring 256
+                 requests of 1-64 held-out HIGGS-like rows, each score
+                 held to float64 ``sigmoid(w.x + b)`` at atol 1e-5 and to
+                 the port's CPU forward at rtol 1e-6; then
+                 ``python -m dmlc_core_tpu_torch.serving`` on the
+                 reference's serving-lane configuration (16,384 features,
+                 2-8 rows of 16 nonzeros, buckets 16,64,256) warmed with
+                 traffic (2 clients, then 8), a 5-s closed loop of 8
+                 clients (QPS, client p50/p99, the server's forward,
+                 parse and request medians from /metrics), no errors and
+                 no new shape after the warm-up, and a SIGTERM drain that
+                 exits 0. Kernel launch counts are zeroed before and read
+                 after: the serving forward runs no hand-written kernel.
 
 Then the ``{"kernels": [...]}`` summary line, the card's
 ``name, power.limit`` line from nvidia-smi, and last
@@ -41,13 +57,19 @@ the last line; without CUDA the script exits non-zero at once.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import http.client
 import json
 import os
+import random
+import select
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -59,8 +81,17 @@ from dmlc_core_tpu_torch import telemetry  # noqa: E402
 from dmlc_core_tpu_torch.device import device_iter  # noqa: E402
 from dmlc_core_tpu_torch.io import native  # noqa: E402
 from dmlc_core_tpu_torch.io.native import NativeParser  # noqa: E402
-from dmlc_core_tpu_torch.models.linear import LinearLearner  # noqa: E402
+from dmlc_core_tpu_torch.models.convert import \
+    linear_params_to_numpy  # noqa: E402
+from dmlc_core_tpu_torch.models.linear import (LinearLearner,  # noqa: E402
+                                               LinearParams)
 from dmlc_core_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
+from dmlc_core_tpu_torch.serving import batching  # noqa: E402
+from dmlc_core_tpu_torch.serving.model import (ScoringModel,  # noqa: E402
+                                               save_model)
+from dmlc_core_tpu_torch.serving.server import ScoringServer  # noqa: E402
+from dmlc_core_tpu_torch.utils.checkpoint import (  # noqa: E402
+    restore_checkpoint, save_checkpoint)
 
 # H100 SXM data sheet peaks (the bound's denominators)
 HBM_BYTES_PER_S = 3.35e12
@@ -524,7 +555,8 @@ def train(uri: str, margin_path: str, device: str, batch_rows: int,
               if len(step_end) > 1 else None)
     return {"losses": losses, "w": params.w.cpu().numpy(),
             "b": float(params.b), "step_s": step_s, "rows": sum(step_rows),
-            "seconds": total, "steady_rows_per_s": steady}
+            "seconds": total, "steady_rows_per_s": steady,
+            "params": params}
 
 
 def compare(a: dict, b: dict, label: str) -> dict:
@@ -544,9 +576,11 @@ def compare(a: dict, b: dict, label: str) -> dict:
 
 
 def train_phase(workdir: str, device: str = "cuda", rows: int = TRAIN_ROWS,
-                batch_rows: int = BATCH_ROWS) -> dict:
+                batch_rows: int = BATCH_ROWS
+                ) -> "tuple[dict, LinearParams]":
     """Main path on ``device`` (dense margin through the kernel), then the
-    segment path on ``device`` and the dense path on the CPU, compared."""
+    segment path on ``device`` and the dense path on the CPU, compared.
+    Returns the phase's record and the main run's trained parameters."""
     uri = os.path.join(workdir, "higgs_like.libsvm")
     t0 = time.perf_counter()
     write_higgs_like(uri, rows)
@@ -602,6 +636,331 @@ def train_phase(workdir: str, device: str = "cuda", rows: int = TRAIN_ROWS,
            "cpu_epoch_s": cpu["seconds"], "launches": launches,
            "histograms_us": hists, "counters": counters, "gaps": gaps}
     emit(out)
+    return out, main["params"]
+
+
+# -- phase 5: checkpoint and serving -----------------------------------------
+# the reference's serving-lane configuration (bench.py, serving_lane): a
+# linear model of 16,384 features, libsvm requests of 2-8 rows with 16
+# nonzeros a row (loadrig corpus "rows=2,rows_max=8,nnz=16,seed=7"), the
+# bucket ladder 16,64,256, a 2 ms batching window, a 500 ms lateness budget
+LANE_FEATURES = 1 << 14
+LANE_ROWS = (2, 8)
+LANE_NNZ = 16
+LANE_SEED = 7
+LANE_ARGS = ["--rows-buckets", "16,64,256", "--batch-delay-ms", "2",
+             "--shed-lateness-ms", "500"]
+SERVE_REQUESTS = 256
+DRAIN_GRACE_S = 5.0   # the server's default DMLC_SERVE_DRAIN_GRACE_S
+
+
+def lane_payloads(count: int) -> "list[bytes]":
+    """``count`` libsvm payloads as the reference lane's generator makes
+    them: request i draws from ``random.Random((seed << 20) ^ i)``, has
+    ``2 + i % 7`` rows, each of 16 sorted distinct ids out of 16,384 with
+    values uniform in [-1, 1] (four decimals) and a 0/1 label."""
+    lo, hi = LANE_ROWS
+    out = []
+    for i in range(count):
+        rng = random.Random((LANE_SEED << 20) ^ i)
+        lines = []
+        for _ in range(lo + i % (hi - lo + 1)):
+            ids = rng.sample(range(LANE_FEATURES), LANE_NNZ)
+            feats = " ".join(f"{j}:{rng.uniform(-1, 1):.4f}"
+                             for j in sorted(ids))
+            lines.append(f"{rng.randint(0, 1)} {feats}")
+        out.append(("\n".join(lines) + "\n").encode())
+    return out
+
+
+def post_scores(port: int, payloads, workers: int) -> list:
+    """POST every payload to ``/score`` from ``workers`` keep-alive
+    connections; ``(status, body)`` per payload, in order."""
+    results = [None] * len(payloads)
+
+    def worker(k: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            for i in range(k, len(payloads), workers):
+                conn.request("POST", "/score", payloads[i],
+                             {"Content-Type": "application/x-libsvm"})
+                resp = conn.getresponse()
+                results[i] = (resp.status, resp.read())
+        finally:
+            conn.close()
+
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        for f in [pool.submit(worker, k) for k in range(workers)]:
+            f.result()
+    return results
+
+
+def closed_loop(port: int, payloads, workers: int, seconds: float) -> dict:
+    """``workers`` clients, each on its own keep-alive connection, send
+    the next payload as soon as the last one is answered, for
+    ``seconds``; completed requests, errors, and latencies (ms)."""
+    lat, errors, lock = [], [0], threading.Lock()
+    nxt = [0]
+    stop_at = time.perf_counter() + seconds
+
+    def worker() -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        mine, bad = [], 0
+        try:
+            while time.perf_counter() < stop_at:
+                with lock:
+                    body = payloads[nxt[0] % len(payloads)]
+                    nxt[0] += 1
+                t0 = time.perf_counter()
+                try:
+                    conn.request("POST", "/score", body,
+                                 {"Content-Type": "application/x-libsvm"})
+                    resp = conn.getresponse()
+                    resp.read()
+                    ok = resp.status == 200
+                except (OSError, http.client.HTTPException):
+                    conn.close()
+                    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                      timeout=60)
+                    ok = False
+                if ok:
+                    mine.append((time.perf_counter() - t0) * 1e3)
+                else:
+                    bad += 1
+        finally:
+            conn.close()
+            with lock:
+                lat.extend(mine)
+                errors[0] += bad
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker) for _ in range(workers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(seconds + 120)
+    elapsed = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads), "load client hung")
+    lat.sort()
+    return {"completed": len(lat), "errors": errors[0],
+            "seconds": elapsed, "qps": len(lat) / elapsed,
+            "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat else None}
+
+
+def scrape(port: int) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        require(resp.status == 200, "/metrics", status=resp.status)
+        return body
+    finally:
+        conn.close()
+
+
+def metric_value(text: str, name: str) -> float:
+    """Sum of the unlabelled-or-labelled samples of ``name``."""
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.split("{")[0].split(" ")[0] == name)
+
+
+def hist_buckets(text: str, name: str) -> "tuple[list, float, float]":
+    """``([(le, cumulative count)], sum, count)`` of histogram ``name``
+    in a Prometheus text scrape."""
+    cum, total, count = [], 0.0, 0.0
+    for ln in text.splitlines():
+        if ln.startswith(name + "_bucket{"):
+            le = ln.split('le="')[1].split('"')[0]
+            cum.append((float("inf") if le == "+Inf" else float(le),
+                        float(ln.rsplit(" ", 1)[1])))
+        elif ln.startswith(name + "_sum"):
+            total = float(ln.rsplit(" ", 1)[1])
+        elif ln.startswith(name + "_count"):
+            count = float(ln.rsplit(" ", 1)[1])
+    return cum, total, count
+
+
+def hist_delta(before: str, after: str, name: str) -> dict:
+    """Count, mean and median of histogram ``name`` over the observations
+    made between two scrapes (the median as its log2 bucket's upper
+    bound)."""
+    b, bs, bc = hist_buckets(before, name)
+    a, as_, ac = hist_buckets(after, name)
+    base = dict(b)
+    delta = [(le, c - base.get(le, 0.0)) for le, c in a]
+    n = ac - bc
+    p50 = next((le for le, c in delta if n and c >= 0.5 * n), None)
+    return {"count": n, "mean": (as_ - bs) / n if n else None,
+            "p50_le": p50}
+
+
+def parse_libsvm_rows(lines) -> "tuple[np.ndarray, np.ndarray]":
+    """(x [n, FEATURES] float64, labels) of HIGGS-like libsvm lines."""
+    x = np.zeros((len(lines), FEATURES), np.float64)
+    for i, ln in enumerate(lines):
+        for tok in ln.split()[1:]:
+            j, _, v = tok.partition(":")
+            x[i, int(j)] = float(v)
+    return x
+
+
+def serve_phase(workdir: str, params: LinearParams, device: str = "cuda",
+                requests: int = SERVE_REQUESTS, warm_s: float = 2.0,
+                loop_s: float = 5.0, workers: int = 8) -> dict:
+    """Checkpoint round trip of the trained model, the in-process server
+    on it, then ``python -m dmlc_core_tpu_torch.serving`` on the lane's
+    configuration under closed-loop load, drained by SIGTERM."""
+    hk.reset_launch_counts()
+    out = {"phase": "serve", "device": device}
+
+    # 1. the trained parameters through the checkpoint, bit for bit
+    ck = os.path.join(workdir, "trained.ckpt")
+    save_checkpoint(ck, params, step=8, extra={"source": "train phase"})
+    back, step, extra = restore_checkpoint(ck, like=params)
+    require(isinstance(back, LinearParams) and step == 8,
+            "checkpoint restore", step=step)
+    for name, got, want in zip(back._fields, back, params):
+        require(got.device == want.device and got.dtype == want.dtype
+                and torch.equal(got, want), "checkpoint leaf differs",
+                leaf=name, device=str(got.device))
+    art = os.path.join(workdir, "higgs_model.ckpt")
+    save_model(art, "linear", linear_params_to_numpy(params), FEATURES,
+               step=8)
+    out["checkpoint"] = {"bytes": os.path.getsize(ck), "bit_exact": True,
+                         "restored_device": str(back.w.device)}
+
+    # 2. the in-process server (the default device on the card) scoring
+    # held-out HIGGS-like rows in requests of 1-64 rows
+    rng = np.random.default_rng(11)
+    lengths = rng.integers(1, 65, requests)
+    held = os.path.join(workdir, "held_out.libsvm")
+    write_higgs_like(held, int(lengths.sum()), seed=1)
+    with open(held) as f:
+        lines = f.read().splitlines()
+    starts = np.concatenate([[0], np.cumsum(lengths)])
+    payloads = [("\n".join(lines[a:b]) + "\n").encode()
+                for a, b in zip(starts[:-1], starts[1:])]
+    flat, _, _ = restore_checkpoint(art)
+    w64 = flat["['w']"].astype(np.float64)
+    b64 = float(flat["['b']"])
+    want64 = 1.0 / (1.0 + np.exp(-(parse_libsvm_rows(lines) @ w64 + b64)))
+    srv = ScoringServer(model_uri=art, **({} if device == "cuda"
+                                          else {"device": device}))
+    srv.start()
+    try:
+        dev_types = {t.device.type for t in srv._model.params}
+        require(dev_types == {device}, "served model off device",
+                devices=sorted(dev_types))
+        t0 = time.perf_counter()
+        replies = post_scores(srv.port, payloads, workers=4)
+        post_s = time.perf_counter() - t0
+    finally:
+        srv.stop(drain=True)
+    got = []
+    for (status, body), n in zip(replies, lengths):
+        require(status == 200, "score request failed", status=status,
+                body=body[:200].decode("utf-8", "replace"))
+        doc = json.loads(body)
+        require(doc["rows"] == n and len(doc["scores"]) == n,
+                "score count", rows=doc["rows"], want=int(n))
+        got += doc["scores"]
+    got = np.asarray(got)
+    require(got.shape == want64.shape and np.all(np.isfinite(got)),
+            "scores shape/finite", shape=got.shape)
+    err64 = float(np.max(np.abs(got - want64)))
+    require(err64 <= 1e-5, "scores vs float64 sigmoid(w.x + b)",
+            max_abs_err=err64)
+    cpu = ScoringModel.load(art, device="cpu")
+    buckets = srv.config.rows_buckets
+    want_cpu = []
+    for p in payloads:
+        group = batching.parse_group([p], "libsvm", srv.config.tmp_dir)
+        row, col, val, rb, _ = batching.pad_to_bucket(
+            group, buckets, srv.config.min_nnz_bucket)
+        want_cpu.append(cpu.scores(row, col, val, rb)[:group.num_rows])
+    want_cpu = np.concatenate(want_cpu)
+    rel_cpu = float(np.max(np.abs(got - want_cpu) / np.abs(want_cpu)))
+    require(rel_cpu <= 1e-6, "scores vs the port's CPU forward",
+            max_rel_err=rel_cpu)
+    out["higgs"] = {"requests": requests, "rows": int(lengths.sum()),
+                    "model_device": sorted(dev_types)[0],
+                    "max_abs_err_vs_f64": err64,
+                    "max_rel_err_vs_cpu": rel_cpu, "post_s": post_s}
+
+    # 3. the CLI entry on the lane's configuration
+    lrng = np.random.default_rng(LANE_SEED)
+    lane_art = os.path.join(workdir, "lane_model.ckpt")
+    save_model(lane_art, "linear",
+               {"w": lrng.normal(size=LANE_FEATURES).astype(np.float32),
+                "b": np.float32(0.0)}, LANE_FEATURES)
+    lane_payloads_ = lane_payloads(4096)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.serving",
+           "--model-uri", lane_art, "--port", "0", *LANE_ARGS]
+    if device != "cuda":
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    with open(os.path.join(workdir, "serve_stderr.txt"), "w") as err:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=err,
+                                text=True, env=env)
+        try:
+            ready, _, _ = select.select([proc.stdout], [], [], 300)
+            line = proc.stdout.readline() if ready else ""
+            require(line.startswith("SERVE_READY port="),
+                    "server handshake", line=line, exit=proc.poll())
+            ready_s = time.perf_counter() - t0
+            port = int(line.split("port=")[1].split()[0])
+            # warm the ladder with traffic: the lane's 2 workers, then the
+            # timed loop's concurrency, whose co-batches fill the larger
+            # buckets the 2-worker batches never reach
+            warm2 = closed_loop(port, lane_payloads_, 2, warm_s)
+            warm8 = closed_loop(port, lane_payloads_, workers, warm_s)
+            before = scrape(port)
+            loop = closed_loop(port, lane_payloads_, workers, loop_s)
+            after = scrape(port)
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=DRAIN_GRACE_S + 30)
+            drain_s = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+    shapes_warm = metric_value(before, "serve_distinct_shapes")
+    shapes_after = metric_value(after, "serve_distinct_shapes")
+    server_errors = (metric_value(after, "serve_errors_total")
+                     - metric_value(before, "serve_errors_total"))
+    sheds = (metric_value(after, "serve_shed_total")
+             - metric_value(before, "serve_shed_total"))
+    lane = {"ready_s": ready_s, "warmup": [warm2, warm8],
+            "qps": loop["qps"], "completed": loop["completed"],
+            "seconds": loop["seconds"], "p50_ms": loop["p50_ms"],
+            "p99_ms": loop["p99_ms"], "errors": loop["errors"],
+            "server_errors": server_errors, "sheds": sheds,
+            "server_us": {name: hist_delta(before, after, name)
+                          for name in ("serve_forward_us",
+                                       "serve_parse_us",
+                                       "serve_request_us")},
+            "serve_batch_rows": hist_delta(before, after,
+                                           "serve_batch_rows"),
+            "distinct_shapes_warm": shapes_warm,
+            "distinct_shapes_after": shapes_after,
+            "drain_exit": code, "drain_s": drain_s}
+    out["lane"] = lane
+    out["launches"] = {k: fn.launches for k, fn in hk.KERNELS.items()}
+    require(warm2["errors"] == 0 and warm8["errors"] == 0
+            and loop["errors"] == 0 and server_errors == 0 and sheds == 0
+            and loop["completed"] > 0, "lane errors", **{
+                k: lane[k] for k in ("errors", "server_errors", "sheds",
+                                     "completed")})
+    require(shapes_after == shapes_warm, "new shapes after the warm-up",
+            warm=shapes_warm, after=shapes_after)
+    require(code == 0, "SIGTERM drain exit code", code=code)
+    emit(out)
     return out
 
 
@@ -632,7 +991,8 @@ def main() -> int:
 
     cases = kernels_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        run = train_phase(workdir)
+        run, params = train_phase(workdir)
+        serve_phase(workdir, params)
 
     main_case = cases["train_65536x28"]
     emit({"kernels": [{

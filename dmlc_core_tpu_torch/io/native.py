@@ -4,9 +4,13 @@ The port never loads the JAX package's library: it builds ``cpp/`` into
 ``dmlc_core_tpu_torch/_build/libdmlc_core_tpu_torch.so`` with
 ``make -C cpp OUT=<that path>`` (which writes nothing into ``cpp/``), under
 the package's build lock, and rebuilds only when a ``cpp/src`` file is
-newer than the library. The binding covers what the device path calls:
-the threaded text parser (:class:`NativeParser`) and the fused padded-batch
-assembler (:class:`NativeBatcher`).
+newer than the library. The binding covers what the port calls: the
+threaded text parser (:class:`NativeParser`), the fused padded-batch
+assembler (:class:`NativeBatcher`), URI-dispatched byte streams
+(:class:`NativeStream`, :func:`path_info`) for checkpoints and serving
+artifacts, the native half of the local-filesystem fault plan
+(:func:`set_fs_fault_plan`), and the native telemetry and trace documents
+(:func:`native_telemetry_snapshot`, :func:`native_trace_snapshot`).
 
 bfloat16 planes are carried as ``uint16`` numpy arrays of bf16 bits; torch
 reads them with ``.view(torch.bfloat16)``. The port needs no ``ml_dtypes``.
@@ -15,9 +19,10 @@ reads them with ``.view(torch.bfloat16)``. The port needs no ``ml_dtypes``.
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -25,7 +30,9 @@ from dmlc_core_tpu_torch.base import (BUILD_DIR, REPO_ROOT, DMLCError,
                                       build_if_stale)
 
 __all__ = ["lib", "build", "LIB_PATH", "NativeParser", "NativeBatcher",
-           "RowBlock", "BF16_STORAGE"]
+           "NativeStream", "RowBlock", "BF16_STORAGE", "path_info",
+           "set_fs_fault_plan", "native_telemetry_snapshot",
+           "native_trace_snapshot"]
 
 LIB_PATH = os.path.join(BUILD_DIR, "libdmlc_core_tpu_torch.so")
 _CPP_DIR = os.path.join(REPO_ROOT, "cpp")
@@ -106,6 +113,17 @@ def _declare_signatures(cdll: ctypes.CDLL) -> None:
     vp, sz, i, u = c.c_void_p, c.c_size_t, c.c_int, c.c_uint
     sigs = {
         "dct_last_error": (c.c_char_p, []),
+        "dct_str_free": (i, [c.c_char_p]),
+        "dct_stream_create": (i, [c.c_char_p, c.c_char_p, c.POINTER(vp)]),
+        "dct_stream_read": (i, [vp, vp, sz, c.POINTER(sz)]),
+        "dct_stream_write": (i, [vp, c.c_char_p, sz]),
+        "dct_stream_free": (i, [vp]),
+        "dct_fs_path_info": (i, [c.c_char_p, c.POINTER(sz), c.POINTER(i)]),
+        "dct_fs_set_fault_plan": (i, [c.c_char_p]),
+        "dct_telemetry_snapshot": (i, [c.POINTER(c.c_char_p)]),
+        "dct_telemetry_reset": (i, []),
+        "dct_telemetry_enable": (i, [i]),
+        "dct_trace_snapshot": (i, [c.POINTER(c.c_char_p)]),
         "dct_parser_create_ex": (i, [c.c_char_p, u, u, c.c_char_p, i, i,
                                      i, i, c.c_char_p, c.c_char_p,
                                      c.POINTER(vp)]),
@@ -356,3 +374,97 @@ class NativeBatcher:
             self.close()
         except Exception:
             pass
+
+
+class NativeStream:
+    """URI-dispatched byte stream (reference Stream::Create, io.h:57):
+    local paths, ``file://`` and the remote schemes of the native core.
+    The reference's automatic TLS helper for ``https://`` is not part of
+    the port."""
+
+    def __init__(self, uri: str, mode: str = "r"):
+        self._h = ctypes.c_void_p()
+        _check(lib().dct_stream_create(uri.encode(), mode.encode(),
+                                       ctypes.byref(self._h)))
+
+    def read(self, size: int = 1 << 20) -> bytes:
+        """Read up to ``size`` bytes (empty bytes at end of stream)."""
+        buf = ctypes.create_string_buffer(size)
+        nread = ctypes.c_size_t()
+        _check(lib().dct_stream_read(self._h, buf, size,
+                                     ctypes.byref(nread)))
+        return buf.raw[: nread.value]
+
+    def read_all(self) -> bytes:
+        """Read the remainder of the stream into one bytes object."""
+        chunks = []
+        while True:
+            c = self.read()
+            if not c:
+                break
+            chunks.append(c)
+        return b"".join(chunks)
+
+    def write(self, data: bytes) -> None:
+        """Write all of ``data`` to the stream."""
+        _check(lib().dct_stream_write(self._h, data, len(data)))
+
+    def close(self) -> None:
+        """Finish and free the native stream (idempotent; raises if the
+        final flush fails)."""
+        if self._h:
+            # the handle is freed even when Finish fails; drop it before
+            # raising so a later close/__del__ cannot double-free
+            h, self._h = self._h, ctypes.c_void_p()
+            _check(lib().dct_stream_free(h))
+
+    def __enter__(self) -> "NativeStream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def path_info(uri: str) -> Tuple[int, bool]:
+    """(size, is_dir) of ``uri``."""
+    size = ctypes.c_size_t()
+    is_dir = ctypes.c_int()
+    _check(lib().dct_fs_path_info(uri.encode(), ctypes.byref(size),
+                                  ctypes.byref(is_dir)))
+    return size.value, bool(is_dir.value)
+
+
+def set_fs_fault_plan(plan: str) -> None:
+    """Install a local-filesystem fault plan inside the native syscall
+    wrappers (cpp/src/fs_fault.h), in the grammar of
+    :mod:`dmlc_core_tpu_torch.utils.fs_fault`. "" clears; an explicit
+    clear beats ``DMLC_FS_FAULT_PLAN``. Raises on bad grammar. Drives the
+    native half only; the Python file ops have their own setter."""
+    _check(lib().dct_fs_set_fault_plan(plan.encode()))
+
+
+def _json_doc(fn) -> dict:
+    out = ctypes.c_char_p()
+    _check(fn(ctypes.byref(out)))
+    try:
+        return json.loads(ctypes.string_at(out).decode())
+    finally:
+        lib().dct_str_free(out)
+
+
+def native_telemetry_snapshot() -> dict:
+    """The native registry's snapshot document
+    (``dct_telemetry_snapshot``, cpp/src/telemetry.h): ``{"version",
+    "enabled", "anchor", "counters", "gauges", "histograms"}``."""
+    return _json_doc(lib().dct_telemetry_snapshot)
+
+
+def native_trace_snapshot() -> dict:
+    """The native span ring's document (``dct_trace_snapshot``)."""
+    return _json_doc(lib().dct_trace_snapshot)

@@ -1,25 +1,45 @@
 """Process-wide counters, gauges, log2 histograms, events and spans.
 
-The subset of ``dmlc_core_tpu/telemetry.py`` that the device iterator
-calls, with the same metric names and the same histogram buckets (bucket
-*i* counts observations ``v <= 2**i``, plus one +Inf overflow bucket), so
-the two packages' numbers read alike. The merged native snapshot, the
-exporters, the SLO plane and the flight recorder's file dump are a later
-slice; here :func:`flight_dump` records a plain event.
+The part of ``dmlc_core_tpu/telemetry.py`` that the port calls, with the
+same metric names and the same histogram buckets (bucket *i* counts
+observations ``v <= 2**i``, plus one +Inf overflow bucket), so the two
+packages' numbers read alike:
+
+- the registry, the event ring and the span ring (with explicit-parent
+  spans for request chains that cross threads, :func:`new_span_id`);
+- :func:`snapshot`, which merges this registry with the port's own native
+  core's registry when that library is loaded, and its renderings
+  :func:`prometheus_text` and :func:`trace_json`;
+- the SLO plane the scoring server runs: :class:`WindowedView`
+  (rolling-window rates and quantiles), :class:`SloMonitor` (multi-window
+  burn-rate pages) and :func:`slo_page_active`;
+- :func:`flight_dump`, the postmortem file under ``DMLC_TRACE_DUMP``.
+
+Cluster merging, the JSONL event export, stall attribution and the host
+resource sampler are a later slice (ROADMAP.md queue 1, "The full
+telemetry plane").
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["Counter", "Gauge", "Histogram", "HIST_BUCKETS", "counter",
+__all__ = ["Counter", "Gauge", "Histogram", "HIST_BUCKETS",
+           "SNAPSHOT_VERSION", "SPANS_MAX", "METRIC_HELP", "counter",
            "gauge", "histogram", "enabled", "enable", "reset", "emit_event",
-           "events", "emit_span", "span", "spans", "flight_dump"]
+           "events", "new_span_id", "emit_span", "span", "spans",
+           "clock_anchor", "trace_snapshot", "trace_json", "snapshot",
+           "prometheus_text", "quantile_from_buckets", "flight_dump",
+           "WindowedView", "SloMonitor", "start_windowed_view",
+           "stop_windowed_view", "windowed_view", "slo_page_active"]
 
+SNAPSHOT_VERSION = 1
+# must match cpp/src/telemetry.h kHistBuckets (le 2^0..2^27, then +Inf)
 HIST_BUCKETS = 28
 SPANS_MAX = 8192
 _EVENTS_MAX = 4096
@@ -30,7 +50,9 @@ _gauges: Dict[Tuple[str, tuple], "Gauge"] = {}
 _hists: Dict[Tuple[str, tuple], "Histogram"] = {}
 _events: List[dict] = []
 _spans: List[dict] = []
+_spans_dropped = 0
 _span_seq = 0
+_tids: Dict[int, int] = {}
 _enabled: Optional[bool] = None
 _tls = threading.local()
 
@@ -94,7 +116,8 @@ class Histogram:
     """Fixed-bucket log2 histogram; observe integer microseconds for
     ``*_us`` metrics."""
 
-    __slots__ = ("name", "labels", "count", "sum", "buckets", "_mu")
+    __slots__ = ("name", "labels", "count", "sum", "buckets", "exemplars",
+                 "_mu")
 
     def __init__(self, name: str, labels: Dict[str, str]):
         self.name = name
@@ -102,6 +125,10 @@ class Histogram:
         self.count = 0
         self.sum = 0
         self.buckets = [0] * (HIST_BUCKETS + 1)
+        # bucket index -> trace id of the last sampled observation there
+        # (None until the first exemplar, so unsampled histograms pay
+        # nothing); exported in the JSON snapshot only
+        self.exemplars: Optional[Dict[int, int]] = None
         self._mu = threading.Lock()
 
     @staticmethod
@@ -112,13 +139,19 @@ class Histogram:
         w = int(v - 1).bit_length()
         return w if w < HIST_BUCKETS else HIST_BUCKETS
 
-    def observe(self, v: float) -> None:
-        """Record one non-negative observation."""
+    def observe(self, v: float, trace_id: Optional[int] = None) -> None:
+        """Record one non-negative observation; ``trace_id`` (a span id of
+        a sampled request chain) becomes its bucket's exemplar."""
         v = max(v, 0)
         with self._mu:
             self.count += 1
             self.sum += v
-            self.buckets[self.bucket_of(int(v))] += 1
+            b = self.bucket_of(int(v))
+            self.buckets[b] += 1
+            if trace_id:
+                if self.exemplars is None:
+                    self.exemplars = {}
+                self.exemplars[b] = trace_id
 
     def zero(self) -> None:
         """Reset all counts."""
@@ -126,28 +159,34 @@ class Histogram:
             self.count = 0
             self.sum = 0
             self.buckets = [0] * (HIST_BUCKETS + 1)
+            self.exemplars = None
 
     def quantile(self, q: float) -> float:
         """Upper bound ``2**i`` of the bucket holding the ``q``-quantile
         (0.0 when empty, ``inf`` in the overflow bucket)."""
-        if not 0.0 < q <= 1.0:
-            raise ValueError(f"quantile {q} outside (0, 1]")
         with self._mu:
-            if self.count <= 0:
-                return 0.0
-            need = max(1, math.ceil(q * self.count))
-            cum = 0
-            for i, n in enumerate(self.buckets):
-                cum += n
-                if cum >= need:
-                    return math.inf if i >= HIST_BUCKETS else float(1 << i)
-        return math.inf
+            return quantile_from_buckets(self.buckets, self.count, q)
 
     def summary(self) -> dict:
         """count, sum, mean, p50 and p99 of the recorded observations."""
         return {"count": self.count, "sum": self.sum,
                 "mean": self.sum / self.count if self.count else 0.0,
                 "p50_le": self.quantile(0.5), "p99_le": self.quantile(0.99)}
+
+
+def quantile_from_buckets(buckets, count: int, q: float) -> float:
+    """The :meth:`Histogram.quantile` estimate over any bucket list."""
+    if not 0.0 < q <= 1.0:
+        raise ValueError(f"quantile {q} outside (0, 1]")
+    if count <= 0:
+        return 0.0
+    need = max(1, math.ceil(q * count))
+    cum = 0
+    for i, n in enumerate(buckets):
+        cum += n
+        if cum >= need:
+            return math.inf if i >= HIST_BUCKETS else float(1 << i)
+    return math.inf
 
 
 def _resolve(table: dict, cls, name: str, labels):
@@ -185,19 +224,33 @@ def enabled() -> bool:
 
 
 def enable(on: bool) -> None:
-    """Set the span gate."""
+    """Set the span gate for this registry and, when the port's native
+    library is loaded, for the native one."""
     global _enabled
     _enabled = bool(on)
+    lib = _native_lib_if_loaded()
+    if lib is not None:
+        lib.dct_telemetry_enable(1 if on else 0)
 
 
-def reset() -> None:
-    """Zero every metric and drop buffered events and spans."""
+def reset(native: bool = True) -> None:
+    """Zero every metric, drop buffered events and spans, and stop the
+    process :class:`WindowedView` (a ticker leaked by one test must not
+    publish into the next); with ``native`` also zero the native registry
+    when its library is loaded."""
+    global _spans_dropped
+    stop_windowed_view(force=True)
     with _lock:
         for table in (_counters, _gauges, _hists):
             for m in table.values():
                 m.zero()
         del _events[:]
         del _spans[:]
+        _spans_dropped = 0
+    if native:
+        lib = _native_lib_if_loaded()
+        if lib is not None:
+            lib.dct_telemetry_reset()
 
 
 def emit_event(event: str, **fields) -> None:
@@ -218,55 +271,100 @@ def events() -> List[dict]:
         return list(_events)
 
 
-def _next_id() -> int:
-    global _span_seq
+# -- spans -------------------------------------------------------------------
+def _thread_lane() -> int:
+    """Small stable lane id for the calling thread (Chrome-trace tid)."""
+    ident = threading.get_ident()
     with _lock:
-        _span_seq += 1
-        return _span_seq
+        lane = _tids.get(ident)
+        if lane is None:
+            lane = _tids[ident] = len(_tids) + 1
+        return lane
+
+
+def _perf_us() -> float:
+    return time.perf_counter() * 1e6
+
+
+def clock_anchor() -> Dict[str, float]:
+    """One (wall, monotonic) clock pair sampled back to back:
+    ``wall_us`` (``time.time()``) and ``perf_us`` (``time.perf_counter()``),
+    both in microseconds."""
+    return {"wall_us": time.time() * 1e6, "perf_us": _perf_us()}
 
 
 def _append_span(name: str, span_id: int, parent: int, start_us: float,
                  dur_us: float, args: Optional[dict]) -> None:
-    rec = {"name": name, "id": span_id, "parent": parent,
+    global _spans_dropped
+    lane = _thread_lane()
+    rec = {"name": name, "id": span_id, "parent": parent, "tid": lane,
            "ts": int(start_us), "dur": int(dur_us)}
     if args:
         rec["args"] = args
     with _lock:
         _spans.append(rec)
         if len(_spans) > SPANS_MAX:
-            del _spans[: len(_spans) - SPANS_MAX]
+            drop = len(_spans) - SPANS_MAX
+            del _spans[:drop]
+            _spans_dropped += drop
 
 
-def emit_span(name: str, start_us: float, dur_us: float, **args) -> None:
-    """Append one completed span (``time.perf_counter()`` microseconds),
-    parented under the thread's open :func:`span`. No-op when disabled."""
+def new_span_id() -> int:
+    """Allocate one span id without emitting a span: the handle a sampled
+    request carries across threads, so its child spans can name an
+    explicit ``parent=`` and its root be emitted later under
+    ``span_id=``."""
+    global _span_seq
+    with _lock:
+        _span_seq += 1
+        return _span_seq
+
+
+def emit_span(name: str, start_us: float, dur_us: float,
+              parent: Optional[int] = None, span_id: Optional[int] = None,
+              **args) -> None:
+    """Append one completed span (``time.perf_counter()`` microseconds).
+    It is parented under the thread's open :func:`span` unless ``parent=``
+    is given (0 for an explicit root); ``span_id=`` reuses an id from
+    :func:`new_span_id`. No-op when disabled."""
     if not enabled():
         return
-    _append_span(name, _next_id(), getattr(_tls, "open_span", 0), start_us,
-                 dur_us, args or None)
+    if span_id is None:
+        span_id = new_span_id()
+    if parent is None:
+        parent = getattr(_tls, "open_span", 0)
+    _append_span(name, span_id, parent, start_us, dur_us, args or None)
 
 
 class _Span:
+    """Context manager behind :func:`span`."""
+
     __slots__ = ("name", "args", "_start", "_id", "_parent", "_active")
 
     def __init__(self, name: str, args: Optional[dict]):
         self.name = name
         self.args = args
 
+    def set_arg(self, key: str, value) -> None:
+        """Attach one key/value to the span's args."""
+        if self.args is None:
+            self.args = {}
+        self.args[key] = value
+
     def __enter__(self) -> "_Span":
         self._active = enabled()
         if self._active:
-            self._id = _next_id()
+            self._id = new_span_id()
             self._parent = getattr(_tls, "open_span", 0)
             _tls.open_span = self._id
-            self._start = time.perf_counter() * 1e6
+            self._start = _perf_us()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
         if self._active:
             _tls.open_span = self._parent
             _append_span(self.name, self._id, self._parent, self._start,
-                         time.perf_counter() * 1e6 - self._start, self.args)
+                         _perf_us() - self._start, self.args)
 
 
 def span(name: str, **args) -> _Span:
@@ -280,7 +378,636 @@ def spans() -> List[dict]:
         return list(_spans)
 
 
-def flight_dump(reason: str) -> None:
-    """Record a postmortem marker as a ``flight-dump`` event."""
-    emit_event("flight-dump", reason=reason)
+# -- the port's native core --------------------------------------------------
+def _native_lib_if_loaded():
+    """The port's loaded native library, or None; never builds it."""
+    from dmlc_core_tpu_torch.io import native
+    return native._lib
 
+
+def _native_doc(fn_name: str) -> Optional[dict]:
+    lib = _native_lib_if_loaded()
+    if lib is None:
+        return None
+    from dmlc_core_tpu_torch.io import native
+    return getattr(native, fn_name)()
+
+
+def trace_snapshot() -> dict:
+    """``{"version", "pid", "anchor", "spans", "dropped", "native"}``:
+    this registry's spans (perf-counter clock) and the native ring's
+    document (steady clock) when the library is loaded, each with its own
+    clock anchor."""
+    return {"version": 1, "pid": os.getpid(), "anchor": clock_anchor(),
+            "spans": spans(), "dropped": _spans_dropped,
+            "native": _native_doc("native_trace_snapshot")}
+
+
+def _wall_spans(snap: dict) -> List[dict]:
+    """Both halves' spans on one wall-clock microsecond timeline, each
+    shifted by its own (wall, monotonic) anchor pair."""
+    out = []
+    a = snap.get("anchor") or {}
+    shift = float(a.get("wall_us", 0)) - float(a.get("perf_us", 0))
+    for s in snap.get("spans", ()):
+        rec = dict(s)
+        rec["ts"] = int(s["ts"] + shift)
+        rec["cat"] = "python"
+        out.append(rec)
+    nat = snap.get("native")
+    if nat:
+        na = nat.get("anchor") or {}
+        nshift = float(na.get("wall_us", 0)) - float(na.get("steady_us", 0))
+        for s in nat.get("spans", ()):
+            rec = {"name": s["name"], "id": s["id"], "parent": s["parent"],
+                   # native lanes get their own tid namespace
+                   "tid": 1000 + int(s["tid"]),
+                   "ts": int(s["ts"] + nshift), "dur": int(s["dur"]),
+                   "cat": "native"}
+            if s.get("arg"):
+                rec["args"] = {"arg": s["arg"]}
+            out.append(rec)
+    out.sort(key=lambda r: r["ts"])
+    return out
+
+
+def trace_json(snap: Optional[dict] = None) -> str:
+    """The process trace (default: :func:`trace_snapshot` now) as
+    Chrome-trace JSON, loadable in Perfetto."""
+    if snap is None:
+        snap = trace_snapshot()
+    pid = snap.get("pid", 0)
+    evs = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+            "args": {"name": f"pid {pid}"}}]
+    for s in _wall_spans(snap):
+        evs.append({"ph": "X", "name": s["name"], "pid": pid,
+                    "tid": s["tid"], "ts": s["ts"],
+                    "dur": max(int(s["dur"]), 0),
+                    "cat": s.get("cat", "python"),
+                    "args": dict(s.get("args") or {}, span_id=s["id"],
+                                 parent=s["parent"])})
+    return json.dumps({"traceEvents": evs, "displayTimeUnit": "ms"})
+
+
+# -- snapshot and Prometheus text --------------------------------------------
+def snapshot(native: Optional[bool] = None) -> dict:
+    """The merged telemetry document every surface serves.
+
+    ``native``: None merges the native registry only when the port's
+    library is already loaded (never builds it); True loads or builds it;
+    False leaves it out. Schema (the reference's version 1): ``{"version",
+    "enabled", "anchor", "native", "native_anchor", "counters": [{"name",
+    "labels", "value"}], "gauges": [...], "histograms": [{"name",
+    "labels", "count", "sum", "buckets", ["exemplars"]}], "events"}``."""
+    doc = {"version": SNAPSHOT_VERSION, "enabled": enabled(),
+           "anchor": clock_anchor(), "native": False,
+           "native_anchor": None, "counters": [], "gauges": [],
+           "histograms": [], "events": []}
+    if native is not False:
+        if native:
+            from dmlc_core_tpu_torch.io import native as native_mod
+            native_mod.lib()
+        nat = _native_doc("native_telemetry_snapshot")
+        if nat is not None:
+            doc["native"] = True
+            doc["native_anchor"] = nat.get("anchor")
+            doc["counters"] += nat.get("counters", [])
+            doc["gauges"] += nat.get("gauges", [])
+            doc["histograms"] += nat.get("histograms", [])
+    with _lock:
+        for c in _counters.values():
+            doc["counters"].append({"name": c.name, "labels": c.labels,
+                                    "value": c.value})
+        for g in _gauges.values():
+            doc["gauges"].append({"name": g.name, "labels": g.labels,
+                                  "value": g.value})
+        for h in _hists.values():
+            rec = {"name": h.name, "labels": h.labels, "count": h.count,
+                   "sum": h.sum, "buckets": list(h.buckets)}
+            if h.exemplars:
+                rec["exemplars"] = dict(h.exemplars)
+            doc["histograms"].append(rec)
+        doc["events"] = list(_events)
+        # labeled so it never collides with the native half's sample
+        doc["counters"].append({"name": "spans_dropped_total",
+                                "labels": {"half": "python"},
+                                "value": _spans_dropped})
+    return doc
+
+
+# One-line HELP text per metric name the port or its native core emits
+# (the reference's catalog, doc/observability.md, less the names of
+# planes the port does not have yet).
+METRIC_HELP: Dict[str, str] = {
+    "io_requests_total": "HTTP requests sent",
+    "io_retries_total": "backoff sleeps taken",
+    "io_backoff_ms_total": "total milliseconds slept in backoff",
+    "io_timeouts_total": "per-attempt socket timeout expiries",
+    "io_faults_injected_total": "DMLC_IO_FAULT_PLAN firings",
+    "io_giveups_total": "retry loops that exhausted their budget",
+    "io_deadline_exhausted_total": "giveups caused by the per-op deadline",
+    "io_connect_us": "TCP connect latency per request (us)",
+    "io_ttfb_us": "request-sent to first response byte (us)",
+    "io_recv_us": "one response-body pull (us)",
+    "io_range_issued_total": "range fetches issued",
+    "io_range_retried_total": "per-range retry attempts",
+    "io_range_degraded_200_total":
+        "streams degraded to the sequential lane (origin ignored Range)",
+    "io_range_bytes": "completed range sizes (bytes)",
+    "io_range_wait_us": "consumer head-of-line wait (us)",
+    "io_range_sched_bytes": "scheduler's current range size",
+    "io_range_sched_concurrency": "scheduler's current worker credit",
+    "parse_chunks_read_total": "chunks admitted by reader stages",
+    "parse_blocks_delivered_total": "row blocks handed to consumers",
+    "parse_reader_waits_total": "reader blocked on the in-flight bound",
+    "parse_worker_waits_total": "worker slept with no claimable slice",
+    "parse_consumer_waits_total":
+        "consumer slept on the head-of-line chunk",
+    "parse_stage_fill_us": "one ReadChunk, source to owned bytes (us)",
+    "parse_stage_scan_us": "one TileCuts slice pre-tiling (us)",
+    "parse_stage_parse_us": "one worker slice decode (us)",
+    "parse_stage_reassemble_wait_us":
+        "one consumer head-of-line wait (us)",
+    "cache_hits_total": "epochs served from a validated binary shard",
+    "cache_misses_total": "epochs served from the text lane",
+    "cache_transcodes_total": "completed atomically-published transcodes",
+    "cache_write_errors_total":
+        "transcode passes lost to local-I/O failure (quarantined)",
+    "cache_read_us": "one replay block hand-out (us)",
+    "cache_write_us": "one transcoded block append (us)",
+    "fs_fault_injected_total": "DMLC_FS_FAULT_PLAN firings per op",
+    "ckpt_save_failures_total": "checkpoint saves that raised",
+    "event_log_dropped_total":
+        "event-log lines dropped by a contained I/O failure",
+    "device_transfer_us": "one device_put, submit to arrays ready (us)",
+    "device_put_submit_us": "the device_put dispatch alone (us)",
+    "device_put_block_us": "dispatch-to-ready DMA wait (us)",
+    "device_batches_total": "batches dispatched to the device",
+    "device_transfer_bytes_total": "host bytes handed to device_put",
+    "device_stage_us":
+        "one host batch assembly (parse+pad+bucket+pack) on the staging "
+        "thread (us)",
+    "device_wait_us":
+        "consumer head-of-line wait for the next device batch (us)",
+    "device_put_failures_total": "device_put calls that raised",
+    "device_host_q_depth": "staged host batches queued for transfer",
+    "device_ready_q_depth": "device batches queued for the consumer",
+    "device_zero_copy_batches_total":
+        "batches transferred by the zero-copy device_put path (staging "
+        "buffers aliased/DMA'd in place, no host copy)",
+    "telemetry_events_total": "events per kind",
+    "spans_dropped_total":
+        "span-ring records overwritten by wrap, per half",
+    "window_rate":
+        "per-second counter rate over the rolling window, summed across "
+        "label sets",
+    "window_quantile":
+        "delta-histogram quantile over the rolling window (overflow "
+        "clamped to the top bucket bound)",
+    "slo_burn_rate":
+        "error-budget burn multiple per objective and window",
+    "slo_page": "1 while any SLO objective is paging (latched)",
+    "slo_page_trips_total": "SLO page activations per objective",
+    "serve_requests_total": "HTTP requests parsed by the front end",
+    "serve_admitted_total": "score requests admitted to the queue",
+    "serve_scored_total": "score requests answered 200 with scores",
+    "serve_shed_total":
+        "requests shed by reason: queue_full, late (intended-time "
+        "lateness budget), draining, breaker, slo_burn",
+    "serve_rejects_total":
+        "error responses by HTTP status code (sheds are additionally "
+        "counted by reason in serve_shed_total)",
+    "serve_errors_total": "5xx server-side failures (forward/internal)",
+    "serve_queue_depth": "admission queue occupancy (bounded)",
+    "serve_inflight": "admitted requests awaiting their response",
+    "serve_batches_total": "micro-batches run through the forward",
+    "serve_batch_rows": "real (pre-padding) rows per micro-batch",
+    "serve_batch_fill":
+        "percent of the padded rows bucket holding real rows",
+    "serve_parse_us": "micro-batch native parse time (us)",
+    "serve_forward_us": "padded-batch forward time, host to scores on the host (us)",
+    "serve_request_us":
+        "admit-to-reply latency on the INTENDED-time clock (us; queue "
+        "wait included, coordinated-omission-safe)",
+    "serve_model_reloads_total": "model reloads that swapped params in",
+    "serve_model_reload_failures_total":
+        "failed reloads (last-good model kept serving)",
+    "serve_breaker_state": "0 closed, 1 open, 2 half-open",
+    "serve_draining": "1 while draining shutdown runs",
+    "serve_distinct_shapes":
+        "distinct padded (kind, rows, nnz) forward shapes this process",
+    "serve_access_log_dropped_total":
+        "access-log lines dropped by a contained I/O failure",}
+
+
+def _escape_label(v: str) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"') \
+                 .replace("\n", "\\n")
+
+
+def _fmt_labels(labels: Dict[str, str], extra: str = "") -> str:
+    parts = [f'{k}="{_escape_label(v)}"' for k, v in sorted(labels.items())]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+def _fmt_value(v) -> str:
+    if isinstance(v, float) and not v.is_integer():
+        return repr(v)
+    return str(int(v))
+
+
+def prometheus_text(snap: Optional[dict] = None) -> str:
+    """A snapshot (default: take one now) in the Prometheus text format
+    0.0.4: each family's samples together behind one ``# HELP`` and
+    ``# TYPE`` pair, histograms as cumulative ``_bucket{le=...}`` series
+    ending in ``le="+Inf"`` plus ``_sum`` and ``_count``."""
+    if snap is None:
+        snap = snapshot()
+    fams: Dict[str, dict] = {}
+
+    def family(name: str, kind: str) -> List[str]:
+        f = fams.get(name)
+        if f is None:
+            f = fams[name] = {"kind": kind, "lines": []}
+        return f["lines"]
+
+    for kind, key in (("counter", "counters"), ("gauge", "gauges")):
+        for m in snap.get(key, ()):
+            family(m["name"], kind).append(
+                f"{m['name']}{_fmt_labels(m['labels'])} "
+                f"{_fmt_value(m['value'])}")
+    for h in snap.get("histograms", ()):
+        lines = family(h["name"], "histogram")
+        cum = 0
+        for i, n in enumerate(h["buckets"]):
+            cum += n
+            le = "+Inf" if i == len(h["buckets"]) - 1 else str(1 << i)
+            le_label = 'le="' + le + '"'
+            lines.append(f"{h['name']}_bucket"
+                         f"{_fmt_labels(h['labels'], le_label)} {cum}")
+        lines.append(f"{h['name']}_sum{_fmt_labels(h['labels'])} "
+                     f"{_fmt_value(h['sum'])}")
+        lines.append(f"{h['name']}_count{_fmt_labels(h['labels'])} "
+                     f"{_fmt_value(h['count'])}")
+    out: List[str] = []
+    for name, f in fams.items():
+        help_text = METRIC_HELP.get(name)
+        if help_text:
+            out.append(f"# HELP {name} "
+                       + help_text.replace("\\", "\\\\").replace("\n",
+                                                                 "\\n"))
+        out.append(f"# TYPE {name} {f['kind']}")
+        out += f["lines"]
+    return "\n".join(out) + "\n"
+
+
+# -- flight recorder ---------------------------------------------------------
+_flight_seq = 0
+
+
+def flight_dump(reason: str) -> Optional[str]:
+    """Record a postmortem: a ``flight-dump`` event, and, when
+    ``DMLC_TRACE_DUMP`` names a directory, the span rings, the event ring
+    and a full snapshot written to ``flight_<pid>_<n>.json`` there.
+    Returns the file's path, else None. A failure to write is swallowed:
+    a postmortem must never mask the failure it records."""
+    emit_event("flight-dump", reason=reason)
+    out_dir = os.environ.get("DMLC_TRACE_DUMP")
+    if not out_dir:
+        return None
+    global _flight_seq
+    try:
+        with _lock:
+            _flight_seq += 1
+            seq = _flight_seq
+        doc = {"reason": reason, "pid": os.getpid(), "wall_ts": time.time(),
+               "anchor": clock_anchor(), "trace": trace_snapshot(),
+               "metrics": snapshot()}
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"flight_{os.getpid()}_{seq}.json")
+        with open(path, "w") as f:
+            json.dump(doc, f)
+            f.write("\n")
+        return path
+    except Exception:
+        return None
+
+
+# -- rolling windows and the SLO plane ---------------------------------------
+# Every registry series is cumulative over the process's life; "is it bad
+# NOW" needs rates and quantiles over the last minutes. WindowedView
+# snapshots the merged registry on a cadence and publishes per-window
+# gauges; SloMonitor turns those windows into burn rates against declared
+# objectives and latches a page with hysteresis.
+
+# cardinality ceiling on the per-(name, labels) state one tick keeps
+_MAX_SERIES = 4096
+
+
+def _compact_snapshot(snap: dict) -> Tuple[Dict[tuple, float],
+                                           Dict[tuple, tuple]]:
+    """Per-(name, labels) counter values and histogram (count, sum,
+    buckets) of one snapshot; gauges carry no delta meaning and drop."""
+    counters: Dict[tuple, float] = {}
+    hists: Dict[tuple, tuple] = {}
+    for c in snap.get("counters", ()):
+        if len(counters) >= _MAX_SERIES:
+            break
+        key = (c["name"], _labels_key(c.get("labels")))
+        counters[key] = counters.get(key, 0.0) + float(c["value"])
+    for h in snap.get("histograms", ()):
+        if len(hists) >= _MAX_SERIES:
+            break
+        key = (h["name"], _labels_key(h.get("labels")))
+        prev = hists.get(key)
+        if prev is None:
+            hists[key] = (int(h["count"]), float(h["sum"]),
+                          tuple(h["buckets"]))
+        else:
+            hists[key] = (prev[0] + int(h["count"]),
+                          prev[1] + float(h["sum"]),
+                          tuple(a + b for a, b in
+                                zip(prev[2], h["buckets"])))
+    return counters, hists
+
+
+class SloMonitor:
+    """Multi-window burn-rate monitor over a :class:`WindowedView`.
+
+    Two objectives on the serving plane's series: availability (share of
+    answers that are neither errors nor sheds,
+    ``DMLC_SLO_AVAILABILITY_TARGET``) and latency (share of answers under
+    ``DMLC_SLO_LATENCY_TARGET_MS`` on the intended-time clock,
+    ``DMLC_SLO_LATENCY_TARGET``). Each objective's burn — bad share over
+    the window divided by the error budget — is published per window as
+    ``slo_burn_rate{slo=,window=}``. A page latches when every window
+    burns at ``DMLC_SLO_FAST_BURN`` or above and clears when the fastest
+    window drops under ``DMLC_SLO_CLEAR_BURN``; it sets ``slo_page``,
+    bumps ``slo_page_trips_total{slo=}`` and lands a flight dump. Sheds
+    taken because of the page (``reason="slo_burn"``) are not counted as
+    bad, or the page could never clear."""
+
+    def __init__(self):
+        from dmlc_core_tpu_torch.tracker.wire import env_float, env_int
+        self.availability_target = env_float(
+            "DMLC_SLO_AVAILABILITY_TARGET", 0.999)
+        self.latency_target_ms = env_int("DMLC_SLO_LATENCY_TARGET_MS", 250)
+        self.latency_target = env_float("DMLC_SLO_LATENCY_TARGET", 0.99)
+        self.fast_burn = env_float("DMLC_SLO_FAST_BURN", 14.4)
+        self.slow_burn = env_float("DMLC_SLO_SLOW_BURN", 6.0)
+        self.clear_burn = env_float("DMLC_SLO_CLEAR_BURN", 1.0)
+        self._paging: set = set()
+        self._page_gauge = gauge("slo_page")
+
+    @property
+    def paging(self) -> bool:
+        """Whether any objective is paging (latched)."""
+        return bool(self._paging)
+
+    @staticmethod
+    def _availability_burn(dcounters: Dict[tuple, float],
+                           budget: float) -> float:
+        good = bad = 0.0
+        for (name, labels), v in dcounters.items():
+            v = max(v, 0.0)
+            if name == "serve_scored_total":
+                good += v
+            elif name == "serve_errors_total":
+                bad += v
+            elif name == "serve_shed_total":
+                if dict(labels).get("reason") != "slo_burn":
+                    bad += v
+        total = good + bad
+        if total <= 0:
+            return 0.0
+        return (bad / total) / budget
+
+    def _latency_burn(self, dhists: Dict[tuple, tuple],
+                      budget: float) -> float:
+        count = 0
+        buckets = [0] * (HIST_BUCKETS + 1)
+        for (name, _labels), (dc, _ds, db) in dhists.items():
+            if name != "serve_request_us":
+                continue
+            count += max(dc, 0)
+            for i, n in enumerate(db):
+                buckets[i] += max(n, 0)
+        if count <= 0:
+            return 0.0
+        target_us = self.latency_target_ms * 1000
+        good = sum(n for i, n in enumerate(buckets)
+                   if i < HIST_BUCKETS and (1 << i) <= target_us)
+        return (max(count - good, 0) / count) / budget
+
+    def evaluate(self, deltas: Dict[str, tuple]) -> None:
+        """Evaluate both objectives over one tick's per-window deltas
+        (``{window: (elapsed_s, dcounters, dhists)}``), publish the burn
+        gauges and run the page/clear latch."""
+        if not deltas:
+            return
+        burns: Dict[str, Dict[str, float]] = {"availability": {},
+                                              "latency": {}}
+        avail_budget = max(1.0 - self.availability_target, 1e-9)
+        lat_budget = max(1.0 - self.latency_target, 1e-9)
+        for label, (_elapsed, dcounters, dhists) in deltas.items():
+            burns["availability"][label] = self._availability_burn(
+                dcounters, avail_budget)
+            burns["latency"][label] = self._latency_burn(dhists, lat_budget)
+        # the clear reads the window spanning the least elapsed time
+        fastest = min(deltas, key=lambda lb: deltas[lb][0])
+        for slo, per_window in burns.items():
+            for label, burn in per_window.items():
+                gauge("slo_burn_rate", {"slo": slo, "window": label}).set(
+                    round(burn, 4))
+            if slo not in self._paging:
+                if per_window and min(per_window.values()) >= \
+                        self.fast_burn:
+                    self._paging.add(slo)
+                    counter("slo_page_trips_total", {"slo": slo}).inc()
+                    detail = ", ".join(f"{lb}={b:.1f}x" for lb, b in
+                                       sorted(per_window.items()))
+                    emit_event("slo-page", slo=slo, burns=detail)
+                    flight_dump(f"slo-page: {slo} burn [{detail}] >= "
+                                f"{self.fast_burn}x budget")
+            elif per_window.get(fastest, 0.0) < self.clear_burn:
+                self._paging.discard(slo)
+                emit_event("slo-page-clear", slo=slo)
+        self._page_gauge.set(1.0 if self._paging else 0.0)
+
+
+class WindowedView:
+    """Rolling-window view over the cumulative registry.
+
+    A daemon ticker (every ``DMLC_SLO_TICK_MS``) takes compact snapshots
+    and keeps enough of them to serve deltas for each window (``fast`` =
+    ``DMLC_SLO_WINDOW_FAST_S``, ``slow`` = ``DMLC_SLO_WINDOW_SLOW_S``).
+    Each tick publishes ``window_rate{name=,window=}`` (counter delta per
+    second, summed across label sets) and
+    ``window_quantile{name=,window=,q=}`` (p50/p99 of the window's delta
+    buckets, overflow clamped to the top bucket bound) as ordinary gauges,
+    and feeds an attached :class:`SloMonitor`. Use
+    :func:`start_windowed_view` / :func:`stop_windowed_view`; :meth:`tick`
+    takes ``now=`` so tests can drive the clock."""
+
+    def __init__(self, windows: Optional[Dict[str, float]] = None):
+        from dmlc_core_tpu_torch.tracker.wire import env_int
+        self.tick_s = max(env_int("DMLC_SLO_TICK_MS", 5000), 10) / 1000.0
+        if windows is None:
+            windows = {"fast": float(env_int("DMLC_SLO_WINDOW_FAST_S",
+                                             300)),
+                       "slow": float(env_int("DMLC_SLO_WINDOW_SLOW_S",
+                                             3600))}
+        self.windows = dict(windows)
+        self.slo: Optional[SloMonitor] = None
+        self._snaps: List[tuple] = []   # (t, counters, hists)
+        self._mu = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def tick(self, now: Optional[float] = None) -> None:
+        """Take one compact snapshot at ``now`` (default: the monotonic
+        clock), prune history past the longest window, publish the window
+        gauges, and feed the SLO monitor."""
+        if now is None:
+            now = time.monotonic()
+        counters, hists = _compact_snapshot(snapshot())
+        horizon = max(self.windows.values()) + 2 * self.tick_s
+        with self._mu:
+            self._snaps.append((now, counters, hists))
+            while len(self._snaps) > 2 and self._snaps[1][0] < \
+                    now - horizon:
+                self._snaps.pop(0)
+            deltas = self._deltas_locked(now)
+        self._publish(deltas)
+        if self.slo is not None:
+            self.slo.evaluate(deltas)
+
+    def _baseline_locked(self, now: float, seconds: float):
+        base = None
+        for rec in self._snaps:
+            if rec[0] <= now - seconds:
+                base = rec           # newest snap at/before window start
+            else:
+                break
+        return base or self._snaps[0]
+
+    def _deltas_locked(self, now: float) -> Dict[str, tuple]:
+        out: Dict[str, tuple] = {}
+        if len(self._snaps) < 2:
+            return out
+        cur_t, cur_c, cur_h = self._snaps[-1]
+        for label, seconds in self.windows.items():
+            base_t, base_c, base_h = self._baseline_locked(now, seconds)
+            elapsed = cur_t - base_t
+            if elapsed <= 0:
+                continue
+            dcounters = {k: v - base_c.get(k, 0.0)
+                         for k, v in cur_c.items()}
+            dhists = {}
+            for k, (c, s, b) in cur_h.items():
+                bc, bs, bb = base_h.get(k, (0, 0.0, (0,) * len(b)))
+                dhists[k] = (c - bc, s - bs,
+                             tuple(x - y for x, y in zip(b, bb)))
+            out[label] = (elapsed, dcounters, dhists)
+        return out
+
+    def deltas(self) -> Dict[str, tuple]:
+        """This instant's per-window ``(elapsed_s, dcounters, dhists)``."""
+        with self._mu:
+            return self._deltas_locked(time.monotonic())
+
+    def _publish(self, deltas: Dict[str, tuple]) -> None:
+        top = float(1 << HIST_BUCKETS)
+        for label, (elapsed, dcounters, dhists) in deltas.items():
+            rates: Dict[str, float] = {}
+            for (name, _labels), v in dcounters.items():
+                rates[name] = rates.get(name, 0.0) + max(v, 0.0)
+            for name, total in rates.items():
+                gauge("window_rate", {"name": name, "window": label}).set(
+                    round(total / elapsed, 4))
+            per_name: Dict[str, tuple] = {}
+            for (name, _labels), (dc, _ds, db) in dhists.items():
+                pc, pb = per_name.get(name, (0, (0,) * (HIST_BUCKETS + 1)))
+                per_name[name] = (pc + max(dc, 0),
+                                  tuple(x + max(y, 0)
+                                        for x, y in zip(pb, db)))
+            for name, (dc, db) in per_name.items():
+                if dc <= 0:
+                    continue
+                for q in (0.5, 0.99):
+                    val = quantile_from_buckets(list(db), dc, q)
+                    gauge("window_quantile",
+                          {"name": name, "window": label,
+                           "q": str(q)}).set(min(val, top))
+
+    def start(self) -> "WindowedView":
+        """Start the ticker thread (idempotent)."""
+        if self._thread is None or not self._thread.is_alive():
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name="windowed-view")
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop the ticker thread (idempotent, joins briefly)."""
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2.0)
+            self._thread = None
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.tick_s):
+            try:
+                self.tick()
+            except Exception:
+                pass  # a broken tick must not kill the view
+
+
+_view_lock = threading.Lock()
+_view: Optional[WindowedView] = None
+_view_refs = 0
+
+
+def start_windowed_view(slo: bool = False) -> WindowedView:
+    """Start (or take one more reference on) the process
+    :class:`WindowedView`; ``slo=True`` attaches the :class:`SloMonitor`.
+    Pair every call with :func:`stop_windowed_view`."""
+    global _view, _view_refs
+    with _view_lock:
+        if _view is None:
+            _view = WindowedView().start()
+        if slo and _view.slo is None:
+            _view.slo = SloMonitor()
+        _view_refs += 1
+        return _view
+
+
+def stop_windowed_view(force: bool = False) -> None:
+    """Drop one reference on the process view; the last one (or
+    ``force=True``) stops the ticker and clears the singleton."""
+    global _view, _view_refs
+    with _view_lock:
+        if _view is None:
+            _view_refs = 0
+            return
+        _view_refs = 0 if force else max(_view_refs - 1, 0)
+        if _view_refs:
+            return
+        v, _view = _view, None
+    v.stop()
+
+
+def windowed_view() -> Optional[WindowedView]:
+    """The live process :class:`WindowedView`, or None."""
+    return _view
+
+
+def slo_page_active() -> bool:
+    """Whether the process SLO monitor is paging: the burn signal the
+    scoring server's admission gate and ``/readyz`` read."""
+    v = _view
+    return v is not None and v.slo is not None and v.slo.paging

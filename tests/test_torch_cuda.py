@@ -246,3 +246,29 @@ def test_cuda_trajectory_matches_cpu(cuda_device, tmp_path, monkeypatch,
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
     np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", ["linear", "fm"])
+def test_scoring_model_on_cuda_matches_cpu(cuda_device, tmp_path, kind):
+    """The serving forward with its parameters on the card equals the CPU
+    run at rtol 1e-6: index_add_ sums a row's terms with atomics on the
+    card, in an order that changes from run to run."""
+    from dmlc_core_tpu_torch.serving.model import ScoringModel, save_model
+    rng = np.random.default_rng(4)
+    F, R = 300, 64
+    # weights of a trained model's size: margins of order one, where the
+    # f32 reordering error stays far below 1e-6 of the score
+    params = {"w": rng.normal(scale=0.1, size=F).astype(np.float32),
+              "b": np.asarray(0.1, np.float32)}
+    if kind == "fm":
+        params["v"] = rng.normal(scale=0.1, size=(F, 8)).astype(np.float32)
+    uri = str(tmp_path / "m.ckpt")
+    save_model(uri, kind, params, F)
+    row, col, val = random_csr(rng, R, F + 5, 2000, pad=48)  # ids past F
+    on_card = ScoringModel.load(uri)
+    assert all(t.device.type == "cuda" for t in on_card.params)
+    got = on_card.scores(row.astype(np.int64), col.astype(np.int64), val,
+                         R)
+    want = ScoringModel.load(uri, device="cpu").scores(row, col, val, R)
+    assert got.shape == (R,) and np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)

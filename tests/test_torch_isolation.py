@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no ml_dtypes, nothing of dmlc_core_tpu.
 
-A subprocess whose ``sys.meta_path`` refuses those packages imports every
-module of ``dmlc_core_tpu_torch`` and ``chip_smoke`` (without running it).
+A subprocess whose ``sys.meta_path`` refuses those packages (and the
+reference's load generator and test helpers) imports every module of
+``dmlc_core_tpu_torch`` and ``chip_smoke`` (without running it).
 Entry points called without ``device=`` where CUDA is missing raise rather
 than run on the CPU, and ``chip_smoke.py`` exits non-zero there.
 """
@@ -22,7 +23,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED_IMPORT_PROBE = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "ml_dtypes", "dmlc_core_tpu")
+BLOCKED = ("jax", "jaxlib", "ml_dtypes", "dmlc_core_tpu", "loadrig",
+           "serving_util", "scripts", "tests")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -52,7 +54,7 @@ def test_port_imports_without_jax_or_reference():
         capture_output=True, text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 14  # every module of the slice
+    assert n >= 31  # every module of the three slices
 
 
 def test_port_sources_name_no_blocked_package():
@@ -68,7 +70,9 @@ def test_port_sources_name_no_blocked_package():
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 top = words[1].split(".")[0]
                 assert top not in ("jax", "jaxlib", "ml_dtypes",
-                                   "dmlc_core_tpu"), (path, line)
+                                   "dmlc_core_tpu", "loadrig",
+                                   "serving_util", "scripts",
+                                   "tests"), (path, line)
 
 
 @pytest.fixture
@@ -77,19 +81,39 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from dmlc_core_tpu_torch import train
     from dmlc_core_tpu_torch.device.device_iter import DeviceRowBlockIter
-    from dmlc_core_tpu_torch.models.convert import linear_params_from_numpy
+    from dmlc_core_tpu_torch.models.convert import (fm_params_from_numpy,
+                                                    linear_params_from_numpy)
     from dmlc_core_tpu_torch.models.linear import LinearLearner
+    from dmlc_core_tpu_torch.serving import (ScoringModel, ScoringServer,
+                                             save_model)
+    from dmlc_core_tpu_torch.serving import __main__ as serve_cli
     p = tmp_path / "a.libsvm"
     p.write_text("1 0:1.0 1:2.0\n0 0:0.5\n")
+    art = str(tmp_path / "m.ckpt")
+    save_model(art, "linear", {"w": np.zeros(2, np.float32),
+                               "b": np.zeros((), np.float32)}, 2)
     with pytest.raises(DMLCError, match="no CUDA device"):
         DeviceRowBlockIter(str(p))
     with pytest.raises(DMLCError, match="no CUDA device"):
         LinearLearner(2)
     with pytest.raises(DMLCError, match="no CUDA device"):
         linear_params_from_numpy({"w": np.zeros(2), "b": 0.0})
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        fm_params_from_numpy({"w": np.zeros(2), "b": 0.0,
+                              "v": np.zeros((2, 2))})
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        ScoringModel.load(art)
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        ScoringServer(model_uri=art)
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        serve_cli.main(["--model-uri", art])
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        train.main([str(p), "--epochs", "1"])
     # an explicit device is honoured
     assert LinearLearner(2, device="cpu").init().w.device.type == "cpu"
+    assert ScoringModel.load(art, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):

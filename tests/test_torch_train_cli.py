@@ -1,0 +1,146 @@
+"""The port's training CLI against ``examples/train.py``.
+
+``python -m dmlc_core_tpu_torch.train --device cpu`` on the 1,200-row file
+of ``test_example_train.py`` prints the reference's per-epoch mean losses
+at rtol 1e-5 (the two sum in f32 in different orders; the lines carry six
+decimals). The reference runs on one JAX device here: on a mesh of D
+devices its step applies D times the learning rate (ROADMAP.md section 3),
+which the port's one-device step does not reproduce. Train, checkpoint and
+``--resume`` go on from the right epoch, and a checkpoint taken inside an
+epoch resumes to the losses of the run without the interruption.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dmlc_core_tpu_torch.base import DMLCError
+from dmlc_core_tpu_torch import train as cli
+from dmlc_core_tpu_torch.device.device_iter import DeviceRowBlockIter
+from dmlc_core_tpu_torch.models.linear import LinearLearner
+from dmlc_core_tpu_torch.utils.checkpoint import save_checkpoint
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COMMON = ["--batch-rows", "256"]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    # torch ops beside the native parser's spinning workers contend for
+    # the cores; one intra-op thread keeps the CPU runs short
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def data(tmp_path):
+    # test_example_train.py's file
+    rng = np.random.default_rng(2)
+    path = tmp_path / "d.libsvm"
+    with open(path, "w") as f:
+        for i in range(1200):
+            x0 = rng.uniform(-1, 1)
+            feats = " ".join([f"0:{x0:.4f}"] + [
+                f"{j}:{rng.uniform(-1, 1):.4f}" for j in range(1, 5)])
+            f.write(f"{1 if x0 > 0 else 0} {feats}\n")
+    return str(path)
+
+
+def _losses(out):
+    return [float(ln.split("mean loss ")[1].split(" ")[0])
+            for ln in out.splitlines() if "mean loss" in ln]
+
+
+def _run(cmd, env, cwd):
+    out = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return out.stdout
+
+
+def test_cli_losses_match_reference(data, tmp_path):
+    args = [data, "--epochs", "2", *COMMON]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    ours = _run([sys.executable, "-m", "dmlc_core_tpu_torch.train", *args,
+                 "--device", "cpu"], env, str(tmp_path))
+    ref_env = dict(env, JAX_PLATFORMS="cpu", XLA_FLAGS="")
+    ref = _run([sys.executable, os.path.join(REPO, "examples", "train.py"),
+                *args], ref_env, str(tmp_path))
+    assert [ln.split(":")[0] for ln in ours.splitlines()] == \
+        ["epoch 0", "epoch 1"], ours
+    assert [ln.split(" mean")[0] for ln in ours.splitlines()] == \
+        [ln.split(" mean")[0] for ln in ref.splitlines() if "mean" in ln]
+    np.testing.assert_allclose(_losses(ours), _losses(ref), rtol=1e-5)
+    assert "over 5 batches" in ours
+
+
+def test_cli_checkpoint_and_resume(data, tmp_path, capsys):
+    ck = str(tmp_path / "ckpt.bin")
+    cli.main([data, "--epochs", "2", *COMMON, "--checkpoint", ck,
+              "--device", "cpu"])
+    first = capsys.readouterr().out
+    assert os.path.exists(ck)
+    cli.main([data, "--epochs", "3", *COMMON, "--resume", ck,
+              "--device", "cpu"])
+    resumed = capsys.readouterr().out.splitlines()
+    assert len(resumed) == 1 and resumed[0].startswith("epoch 2:")
+    cli.main([data, "--epochs", "3", *COMMON, "--device", "cpu"])
+    whole = capsys.readouterr().out.splitlines()
+    assert whole[:2] == first.splitlines()
+    assert resumed[0] == whole[2]
+
+
+def test_cli_mid_epoch_resume_matches_uninterrupted(data, tmp_path,
+                                                    capsys):
+    """A checkpoint written after k batches of epoch 0 with
+    ``it.state()`` in its extra (how the reference's CLI reads one)
+    resumes inside the epoch: the rest of epoch 0 and epoch 1 equal the
+    uninterrupted run."""
+    k = 2
+    learner = LinearLearner(5, learning_rate=0.1, device="cpu")
+    params = learner.init()
+    losses = []
+    with DeviceRowBlockIter(data, batch_rows=256, dense_dtype="bf16",
+                            device="cpu") as it:
+        for batch in it:
+            params, loss = learner.step(params, batch)
+            losses.append(float(loss))
+            if len(losses) == k:
+                ck = str(tmp_path / "mid.ckpt")
+                save_checkpoint(ck, params, step=0,
+                                extra={str(a): str(b)
+                                       for a, b in it.state().items()})
+    assert len(losses) == 5
+    cli.main([data, "--epochs", "2", *COMMON, "--device", "cpu"])
+    whole = capsys.readouterr().out.splitlines()
+    assert _losses(whole[0]) == pytest.approx([np.mean(losses)], rel=1e-6)
+    cli.main([data, "--epochs", "2", *COMMON, "--resume", ck,
+              "--device", "cpu"])
+    resumed = capsys.readouterr().out.splitlines()
+    assert resumed[0].startswith("epoch 0:") and "over 3 batches" in \
+        resumed[0]
+    assert _losses(resumed[0]) == pytest.approx([np.mean(losses[k:])],
+                                                rel=1e-6)
+    assert resumed[1] == whole[1]
+
+
+@pytest.mark.parametrize("extra_args,env,match", [
+    (["--model", "fm"], {}, "FM \\+ ranking"),
+    (["--objective", "pairwise"], {}, "FM \\+ ranking"),
+    ([], {"DMLC_TASK_ID": "0", "DMLC_NUM_WORKER": "2"},
+     "Multi-process data parallelism"),
+    ([], {"DMLC_COORDINATOR_ADDRESS": "localhost:1"},
+     "Multi-process data parallelism"),
+])
+def test_cli_refuses_unported_lanes(data, monkeypatch, extra_args, env,
+                                    match):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(DMLCError, match=match):
+        cli.main([data, *extra_args, "--device", "cpu"])
