@@ -11,9 +11,13 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
 2. ``build``   — the CUDA kernel (``csrc/*.cu``, sm_90a) and the native core
                  (``cpp/``), both from the checkout's sources into
                  ``dmlc_core_tpu_torch/_build/``; seconds each and ptxas info.
+   ``data``    — the HIGGS-shaped libsvm file (28 features, 524,288 rows)
+                 and the port's converter's ``.crec`` and bf16 ``.drec``
+                 files of it, as ``bench.py`` converts HIGGS.
 3. ``kernels`` — every hand-written kernel against its plain PyTorch version
                  on the card: the bench probe shape, the training shape
-                 (also with its nonzeros permuted), duplicates, padding
+                 (also with its nonzeros permuted), a real ``.crec`` batch
+                 at that lane's bucket, duplicates, padding
                  and out-of-range ids, empty input, uneven libsvm-like
                  rows with empty ones, 27 columns, 20,000 columns;
                  kernel, plain-version and library-call device times
@@ -48,6 +52,32 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  no new shape after the warm-up, and a SIGTERM drain that
                  exits 0. Kernel launch counts are zeroed before and read
                  after: the serving forward runs no hand-written kernel.
+6. ``lanes``   — the ``train`` phase's file through every
+                 ``DeviceRowBlockIter`` lane, one epoch of
+                 ``LinearLearner(28)`` each: ``.drec`` against the dense
+                 bf16 text lane (batches and losses bit for bit); text CSR
+                 and ``index64=True`` (batches bit for bit, losses at rtol
+                 1e-5: the segment margin sums with atomics); ``.crec``
+                 with the dense margin through the kernel (launches
+                 counted on this run alone) against the ``train`` run at
+                 rtol 1e-5; bf16 CSR values against the CPU run at rtol
+                 1e-5. Rows/s and ``device_stage_us`` per lane.
+7. ``fm``      — a Criteo-shaped factorization machine at full width
+                 (39 libfm fields, 2^20 hashed features, k = 8): one epoch
+                 of 4 x 65,536 rows after a warm-up step, its first 2
+                 steps against the port's CPU run, the dense margin of a
+                 ``.drec`` batch against the CSR margin of the same rows,
+                 and the trained model served (``save_model``,
+                 ``ScoringModel``) against float64 FM math at atol 1e-5.
+8. ``rank``    — MSLR-WEB30K-shaped pairwise ranking (136 features, labels
+                 0-4, about 120 documents a query): one epoch of
+                 ``LinearLearner(136, objective="pairwise")`` at 8 x 8192
+                 rows against the CPU run at rtol 1e-5, and the
+                 learner's refusals of R = 16,384 and of data without
+                 qids.
+
+Each configuration keeps its published widths; row counts are cut, and
+each phase's JSON names the cut (``reduced``).
 
 Then the ``{"kernels": [...]}`` summary line, the card's
 ``name, power.limit`` line from nvidia-smi, and last
@@ -79,10 +109,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from dmlc_core_tpu_torch import telemetry  # noqa: E402
 from dmlc_core_tpu_torch.device import device_iter  # noqa: E402
-from dmlc_core_tpu_torch.io import native  # noqa: E402
+from dmlc_core_tpu_torch.io import convert, native  # noqa: E402
 from dmlc_core_tpu_torch.io.native import NativeParser  # noqa: E402
-from dmlc_core_tpu_torch.models.convert import \
-    linear_params_to_numpy  # noqa: E402
+from dmlc_core_tpu_torch.models.convert import (  # noqa: E402
+    fm_params_from_numpy, fm_params_to_numpy, linear_params_to_numpy)
+from dmlc_core_tpu_torch.models.fm import FMLearner, FMParams  # noqa: E402
 from dmlc_core_tpu_torch.models.linear import (LinearLearner,  # noqa: E402
                                                LinearParams)
 from dmlc_core_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
@@ -431,10 +462,11 @@ def yardsticks(r, c, v, R, F) -> dict:
             "stream_bytes": 16 * kept}
 
 
-def kernels_phase() -> dict:
+def kernels_phase(extra_cases=()) -> dict:
     rng = np.random.default_rng(0)
     results = []
-    for name, row, col, val, R, F, tol, library_ok in kernel_cases(rng):
+    for name, row, col, val, R, F, tol, library_ok in (
+            kernel_cases(rng) + list(extra_cases)):
         r = torch.from_numpy(row).cuda()
         c = torch.from_numpy(col).cuda()
         v = torch.from_numpy(val).cuda()
@@ -575,16 +607,50 @@ def compare(a: dict, b: dict, label: str) -> dict:
     return gap
 
 
-def train_phase(workdir: str, device: str = "cuda", rows: int = TRAIN_ROWS,
+def write_higgs_files(workdir: str, rows: int = TRAIN_ROWS) -> dict:
+    """The HIGGS-shaped libsvm file of the ``train`` phase and the port's
+    conversions of it, as ``bench.py`` converts HIGGS: ``.crec`` (CSR
+    device planes) and ``.drec`` (bf16 row matrices). Paths and seconds."""
+    out = {"text": os.path.join(workdir, "higgs_like.libsvm"),
+           "crec": os.path.join(workdir, "higgs_like.crec"),
+           "drec": os.path.join(workdir, "higgs_like.drec"), "rows": rows}
+    t0 = time.perf_counter()
+    write_higgs_like(out["text"], rows)
+    t1 = time.perf_counter()
+    require(convert.rows_to_csr_recordio(out["text"], out["crec"]) == rows,
+            "crec conversion row count")
+    t2 = time.perf_counter()
+    require(convert.rows_to_dense_recordio(out["text"], out["drec"],
+                                           dtype="bf16") == rows,
+            "drec conversion row count")
+    out.update(text_write_s=t1 - t0, crec_convert_s=t2 - t1,
+               drec_convert_s=time.perf_counter() - t2,
+               bytes={k: os.path.getsize(out[k])
+                      for k in ("text", "crec", "drec")})
+    return out
+
+
+def crec_kernel_case(crec_uri: str, batch_rows: int = BATCH_ROWS):
+    """A kernel case (see kernel_cases) from the first batch of the
+    ``.crec`` lane, at that lane's own static nnz bucket."""
+    hb = device_iter.CsrRecHostBatcher(crec_uri, batch_rows=batch_rows)
+    try:
+        b = hb.next_batch()
+    finally:
+        hb.close()
+    row, col, val = (np.ascontiguousarray(a[0]) for a in (b.row, b.col,
+                                                          b.val))
+    return (f"crec_batch_{batch_rows}x{FEATURES}", row, col, val,
+            batch_rows, FEATURES, "exact", True)
+
+
+def train_phase(uri: str, device: str = "cuda", rows: int = TRAIN_ROWS,
                 batch_rows: int = BATCH_ROWS
                 ) -> "tuple[dict, LinearParams]":
-    """Main path on ``device`` (dense margin through the kernel), then the
-    segment path on ``device`` and the dense path on the CPU, compared.
-    Returns the phase's record and the main run's trained parameters."""
-    uri = os.path.join(workdir, "higgs_like.libsvm")
-    t0 = time.perf_counter()
-    write_higgs_like(uri, rows)
-    write_s = time.perf_counter() - t0
+    """Main path on ``device`` (dense margin through the kernel) over the
+    ``rows``-row HIGGS-shaped file ``uri``, then the segment path on
+    ``device`` and the dense path on the CPU, compared. Returns the
+    phase's record and the main run's trained parameters."""
     with NativeParser(uri) as parser:
         width = parser.num_features()
     require(width == FEATURES, "data file width", features=width)
@@ -626,7 +692,7 @@ def train_phase(workdir: str, device: str = "cuda", rows: int = TRAIN_ROWS,
             "vs_cpu_plain": compare(main, cpu, f"{device} vs cpu")}
     out = {"phase": "train", "device": device, "rows": rows,
            "batch_rows": batch_rows, "steps": steps,
-           "file_write_s": write_s, "losses": main["losses"],
+           "losses": main["losses"],
            "warmup_step_s": warm["step_s"][0],
            "epoch_s": main["seconds"], "rows_per_s": rows / main["seconds"],
            "steady_rows_per_s": main["steady_rows_per_s"],
@@ -964,6 +1030,503 @@ def serve_phase(workdir: str, params: LinearParams, device: str = "cuda",
     return out
 
 
+# -- phase 6: the DeviceRowBlockIter lanes -----------------------------------
+def trees_equal(a: list, b: list) -> bool:
+    """Whether two lists of batch trees hold the same leaves bit for bit."""
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return len(a) == len(b) and all(
+        set(x) == set(y) and all(torch.equal(bits(x[k]), bits(y[k]))
+                                 for k in x) for x, y in zip(a, b))
+
+
+def lane_epoch(uri: str, device: str, margin_path: str = "segment",
+               keep: bool = False, **iter_kw) -> dict:
+    """One epoch of ``LinearLearner(FEATURES)`` over one lane of
+    ``DeviceRowBlockIter``: losses, parameters, rows/s from the iterator's
+    start to the last loss, the host-side ``device_stage_us`` mean, and
+    with ``keep`` a copy of every batch tree."""
+    learner = LinearLearner(FEATURES, margin_path=margin_path, device=device)
+    params = learner.init()
+    telemetry.reset()
+    losses, trees, rows = [], [], 0
+    t0 = time.perf_counter()
+    with device_iter.DeviceRowBlockIter(uri, device=device, **iter_kw) as it:
+        for batch in it:
+            if keep:
+                trees.append({k: t.clone() for k, t in batch.tree().items()})
+            params, loss = learner.step(params, batch)
+            losses.append(float(loss))
+            rows += batch.total_rows
+    seconds = time.perf_counter() - t0
+    stage = telemetry.histogram("device_stage_us").summary()
+    return {"losses": losses, "w": params.w.cpu().numpy(),
+            "b": float(params.b), "rows": rows, "seconds": seconds,
+            "rows_per_s": rows / seconds, "stage_us_mean": stage["mean"],
+            "stage_count": stage["count"], "trees": trees}
+
+
+def lanes_phase(data: dict, text_csr: dict, device: str = "cuda",
+                batch_rows: int = BATCH_ROWS) -> dict:
+    """The ``train`` phase's file through every lane, one epoch each:
+    ``.drec`` against the dense bf16 text lane (batches and losses bit
+    for bit), ``.crec`` through the kernel (dense margin) against the
+    ``train`` phase's text CSR run (``text_csr``) at rtol 1e-5, bf16 CSR
+    values on ``device`` against the same lane on the CPU at rtol 1e-5,
+    and ``index64`` batches against the native CSR lane's bit for bit."""
+    rows = data["rows"]
+    steps = -(-rows // batch_rows)
+    kw = dict(batch_rows=batch_rows)
+    out = {"phase": "lanes", "device": device, "rows": rows,
+           "batch_rows": batch_rows, "steps": steps,
+           "reduced": {"rows": [11_000_000, rows]},
+           "files": {k: data[k] for k in ("bytes", "text_write_s",
+                                           "crec_convert_s",
+                                           "drec_convert_s")}}
+    lanes = {}
+
+    def record(name, run):
+        require(run["rows"] == rows and len(run["losses"]) == steps
+                and np.all(np.isfinite(run["losses"])), f"{name} epoch",
+                rows=run["rows"], steps=len(run["losses"]))
+        lanes[name] = {k: run[k] for k in ("rows_per_s", "seconds",
+                                           "stage_us_mean", "losses")}
+
+    # recd against the dense bf16 text lane
+    dense = lane_epoch(data["text"], device, keep=True, layout="dense",
+                       dense_dtype="bf16", **kw)
+    recd = lane_epoch(data["drec"], device, keep=True, dense_dtype="bf16",
+                      **kw)
+    record("text_dense_bf16", dense)
+    record("recd", recd)
+    require(trees_equal(recd["trees"], dense["trees"]),
+            "recd batches differ from the dense bf16 text lane's")
+    require(recd["losses"] == dense["losses"]
+            and np.array_equal(recd["w"], dense["w"]),
+            "recd losses differ from the dense bf16 text lane's",
+            recd=recd["losses"], text=dense["losses"])
+    del dense, recd
+
+    # index64 against the native CSR lane
+    native_csr = lane_epoch(data["text"], device, keep=True, layout="csr",
+                            **kw)
+    wide = lane_epoch(data["text"], device, keep=True, layout="csr",
+                      index64=True, **kw)
+    record("text_csr", native_csr)
+    record("index64", wide)
+    require(trees_equal(wide["trees"], native_csr["trees"]),
+            "index64 batches differ from the native CSR lane's")
+    # the same batches; the segment margin's index_add_ sums with atomics
+    # on the card, so the two runs agree to rtol 1e-5, not bit for bit
+    gaps = {"index64_vs_text_csr": compare(wide, native_csr,
+                                           "index64 vs text CSR")}
+    out["bucket"] = {"text_csr": int(native_csr["trees"][0]["big"].shape[-1])}
+    del wide
+
+    # crec through the kernel, launches counted on this run alone
+    os.environ["DCT_CSR_TO_DENSE"] = "pallas"
+    hk.reset_launch_counts()
+    crec = lane_epoch(data["crec"], device, margin_path="dense", keep=True,
+                      **kw)
+    out["launches"] = {k: fn.launches for k, fn in hk.KERNELS.items()}
+    record("crec", crec)
+    out["bucket"]["crec"] = int(crec["trees"][0]["big"].shape[-1])
+    if device == "cuda":
+        require(out["launches"]["csr_to_dense"] == steps,
+                "kernel launches on the crec lane", steps=steps,
+                launches=out["launches"])
+    gaps["crec_vs_text_csr"] = compare(crec, text_csr, "crec vs text CSR")
+    out["gaps"] = gaps
+    del crec, native_csr
+
+    # bf16 CSR values: the card against the CPU run of the same lane
+    bf16 = lane_epoch(data["text"], device, layout="csr",
+                      csr_val_dtype="bf16", **kw)
+    record("text_csr_bf16_values", bf16)
+    bf16_cpu = lane_epoch(data["text"], "cpu", layout="csr",
+                          csr_val_dtype="bf16", **kw)
+    out["gaps"]["bf16_values_vs_cpu"] = compare(bf16, bf16_cpu,
+                                                f"bf16 values {device} vs cpu")
+    # the rounding of the values moves the trajectory: reported, not gated
+    la, lf = np.asarray(bf16["losses"]), np.asarray(lanes["text_csr"]
+                                                    ["losses"])
+    out["gaps"]["bf16_values_vs_f32_loss_max_rel"] = float(
+        np.max(np.abs(la - lf) / np.abs(lf)))
+    out["lanes"] = lanes
+    emit(out)
+    return out
+
+
+# -- phase 7: a Criteo-shaped factorization machine --------------------------
+# The Criteo Display Advertising Challenge schema (Kaggle, 2014): 13 integer
+# and 26 categorical fields, one nonzero each, written as libfm
+# field:feature:value. Categoricals are hashed into 2^20 features, as
+# libffm's Criteo example hashes them to about 10^6; the integer fields are
+# features 0-12 with seeded log-normal values (four decimals).
+CRITEO_INT_FIELDS = 13
+CRITEO_CAT_FIELDS = 26
+CRITEO_FEATURES = 1 << 20
+CRITEO_ROWS = 45_840_617   # the challenge's training rows
+FM_RANK = 8                # the train CLI's default --fm-rank
+FM_ROWS = 4 * BATCH_ROWS
+FM_HELD_OUT = 64
+# v after the steps held against the CPU: index_add_ sums its gradient with
+# atomics on the card, in an order that changes from run to run
+FM_V_RTOL = 1e-5
+FM_V_ATOL = 1e-7
+
+
+def criteo_like(rows: int, seed: int, features: int = CRITEO_FEATURES):
+    """(labels [rows], cols [rows, 39], vals [rows, 39]) of seeded
+    Criteo-shaped rows: integer fields first (feature j, log-normal value
+    rounded to four decimals), then the 26 categoricals (value 1) drawn
+    Zipf-like per field and hashed to [13, features). Labels come from a
+    seeded logistic rule over both, about a quarter of them clicks."""
+    rng = np.random.default_rng(seed)
+    ints = np.minimum(np.round(rng.lognormal(0.0, 0.5, (rows,
+                                                        CRITEO_INT_FIELDS)),
+                               4), 9999.9999)
+    rank = np.minimum(rng.zipf(1.3, (rows, CRITEO_CAT_FIELDS)), 1 << 24)
+    field = np.arange(CRITEO_CAT_FIELDS, dtype=np.uint64)
+    h = (rank.astype(np.uint64) * np.uint64(2654435761)
+         + field * np.uint64(40503)) % np.uint64(features - CRITEO_INT_FIELDS)
+    cats = h.astype(np.int64) + CRITEO_INT_FIELDS
+    cols = np.concatenate(
+        [np.broadcast_to(np.arange(CRITEO_INT_FIELDS),
+                         (rows, CRITEO_INT_FIELDS)), cats], axis=1)
+    vals = np.concatenate([ints, np.ones((rows, CRITEO_CAT_FIELDS))], axis=1)
+    effect = ((cats * 2654435761) % 1000) / 1000.0 - 0.5
+    logit = (-1.2 + 0.3 * (np.log(ints)).sum(axis=1)
+             + 0.25 * effect.sum(axis=1))
+    labels = rng.random(rows) < 1 / (1 + np.exp(-logit))
+    return labels, cols, vals
+
+
+def write_criteo_like(path: str, rows: int, seed: int,
+                      features: int = CRITEO_FEATURES) -> None:
+    """The rows of :func:`criteo_like` as a libfm file, every token fixed
+    width (zero-padded field, feature and value digits), built as one byte
+    matrix."""
+    labels, cols, vals = criteo_like(rows, seed, features)
+    nf = CRITEO_INT_FIELDS + CRITEO_CAT_FIELDS
+    width = 1 + CRITEO_INT_FIELDS * 21 + CRITEO_CAT_FIELDS * 13 + 1
+    buf = np.empty((rows, width), np.uint8)
+    buf[:, 0] = ord("0") + labels
+    pos = 1
+    for f in range(nf):
+        buf[:, pos] = ord(" ")
+        put_digits(buf, pos + 1, np.full(rows, f), 2)
+        buf[:, pos + 3] = ord(":")
+        put_digits(buf, pos + 4, cols[:, f], 7)
+        buf[:, pos + 11] = ord(":")
+        if f < CRITEO_INT_FIELDS:
+            q = np.rint(vals[:, f] * 1e4).astype(np.int64)
+            put_digits(buf, pos + 12, q // 10000, 4)
+            buf[:, pos + 16] = ord(".")
+            put_digits(buf, pos + 17, q % 10000, 4)
+            pos += 21
+        else:
+            buf[:, pos + 12] = ord("1")
+            pos += 13
+    buf[:, pos] = ord("\n")
+    buf.tofile(path)
+
+
+def put_digits(buf: np.ndarray, pos: int, n: np.ndarray, width: int) -> None:
+    """Write ``n`` as ``width`` zero-padded decimal digits at column
+    ``pos`` of every row of ``buf``."""
+    n = np.asarray(n, np.int64)
+    for k in range(width):
+        buf[:, pos + k] = ord("0") + (n // 10 ** (width - 1 - k)) % 10
+
+
+def fm_epoch(uri: str, params: FMParams, device: str, batch_rows: int,
+             features: int, max_steps: "int | None" = None,
+             snapshot_at: "int | None" = None) -> dict:
+    """FMLearner(features, k=FM_RANK) from ``params`` over ``uri`` (CSR
+    layout): losses, step times, the parameters after the last step and
+    (``snapshot_at``) after that many steps, and the peak device memory
+    of the run on a card."""
+    learner = FMLearner(features, k=FM_RANK, device=device)
+    params = FMParams(*(t.to(device) for t in params))
+    losses, step_s, rows, snap, bucket = [], [], 0, None, None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with device_iter.DeviceRowBlockIter(uri, batch_rows=batch_rows,
+                                        layout="csr", device=device) as it:
+        for batch in it:
+            ts = time.perf_counter()
+            params, loss = learner.step(params, batch)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - ts)
+            rows += batch.total_rows
+            bucket = batch.nnz_bucket
+            if len(losses) == snapshot_at:
+                snap = fm_params_to_numpy(params)
+            if len(losses) == max_steps:
+                break
+    seconds = time.perf_counter() - t0
+    return {"losses": losses, "step_s": step_s, "rows": rows,
+            "seconds": seconds, "params": params, "snapshot": snap,
+            "nnz_bucket": bucket,
+            "peak_bytes": (torch.cuda.max_memory_allocated()
+                           if device == "cuda" else None)}
+
+
+def fm_margin_f64(p: dict, offset, col, val) -> np.ndarray:
+    """float64 FM margins of CSR rows (Rendle's identity)."""
+    w, v = p["w"].astype(np.float64), p["v"].astype(np.float64)
+    val = val.astype(np.float64)
+    rows = np.repeat(np.arange(len(offset) - 1), np.diff(offset))
+    n = len(offset) - 1
+    lin = np.zeros(n)
+    np.add.at(lin, rows, w[col] * val)
+    vx = v[col] * val[:, None]
+    s1 = np.zeros((n, v.shape[1]))
+    s2 = np.zeros((n, v.shape[1]))
+    np.add.at(s1, rows, vx)
+    np.add.at(s2, rows, vx * vx)
+    return float(p["b"]) + lin + 0.5 * (s1 * s1 - s2).sum(axis=1)
+
+
+def fm_phase(workdir: str, data: dict, device: str = "cuda",
+             rows: int = FM_ROWS, batch_rows: int = BATCH_ROWS,
+             features: int = CRITEO_FEATURES, cpu_steps: int = 2) -> dict:
+    """A Criteo-shaped FM at full width: one epoch on ``device`` after a
+    warm-up step, its first ``cpu_steps`` steps held against the port on
+    the CPU, the dense margin on a ``.drec`` batch against the CSR margin
+    of the same rows, and the trained model served."""
+    path = os.path.join(workdir, "criteo_like.libfm")
+    t0 = time.perf_counter()
+    write_criteo_like(path, rows, seed=3, features=features)
+    write_s = time.perf_counter() - t0
+    uri = path + "?format=libfm"
+    init = FMLearner(features, k=FM_RANK, device="cpu").init(seed=0)
+    fm_epoch(uri, init, device, batch_rows, features, max_steps=1)  # warm-up
+    run = fm_epoch(uri, init, device, batch_rows, features,
+                   snapshot_at=cpu_steps)
+    steps = -(-rows // batch_rows)
+    trained = fm_params_to_numpy(run["params"])
+    require(len(run["losses"]) == steps and run["rows"] == rows
+            and np.all(np.isfinite(run["losses"]))
+            and all(np.all(np.isfinite(a)) for a in trained.values())
+            and trained["v"].shape == (features, FM_RANK),
+            "fm epoch: misshapen or non-finite", losses=run["losses"])
+    cpu = fm_epoch(uri, init, "cpu", batch_rows, features,
+                   max_steps=cpu_steps, snapshot_at=cpu_steps)
+    la = np.asarray(run["losses"][:cpu_steps])
+    lb = np.asarray(cpu["losses"])
+    got, want = run["snapshot"], cpu["snapshot"]
+    gap = {"loss_max_rel": float(np.max(np.abs(la - lb) / np.abs(lb))),
+           "w_max_abs": float(np.max(np.abs(got["w"] - want["w"]))),
+           "b_abs": float(abs(got["b"] - want["b"])),
+           "v_max_abs": float(np.max(np.abs(got["v"] - want["v"]))),
+           "v_max_rel": float(np.max(np.abs(got["v"] - want["v"])
+                                     / np.maximum(np.abs(want["v"]),
+                                                  1e-30)))}
+    require(np.allclose(la, lb, rtol=1e-5, atol=0)
+            and np.allclose(got["w"], want["w"], rtol=1e-5, atol=1e-7)
+            and np.allclose(got["b"], want["b"], rtol=1e-5, atol=1e-7),
+            f"fm {device} vs cpu beyond rtol 1e-5", **gap)
+    # v's gradient sums with atomics on the card (index_add_), in another
+    # order on every run: held at the tolerance the first card run showed
+    require(np.allclose(got["v"], want["v"], rtol=FM_V_RTOL,
+                        atol=FM_V_ATOL), f"fm v {device} vs cpu", **gap)
+
+    # the dense margin of a 28-feature .drec batch against the CSR margin
+    # of the same rows (bf16 values on both lanes)
+    prng = np.random.default_rng(8)
+    small = {"b": np.float32(0.1),
+             "w": prng.normal(scale=0.1, size=FEATURES).astype(np.float32),
+             "v": prng.normal(scale=0.1, size=(FEATURES, FM_RANK))
+             .astype(np.float32)}
+    small_p = fm_params_from_numpy(small, device)
+    dense_learner = FMLearner(FEATURES, k=FM_RANK, device=device)
+    with device_iter.DeviceRowBlockIter(data["drec"], batch_rows=batch_rows,
+                                        dense_dtype="bf16",
+                                        device=device) as it:
+        dense_m = dense_learner.predict(small_p, next(iter(it)))
+    with device_iter.DeviceRowBlockIter(data["text"], batch_rows=batch_rows,
+                                        layout="csr", csr_val_dtype="bf16",
+                                        device=device) as it:
+        csr_m = dense_learner.predict(small_p, next(iter(it)))
+    dense_gap = float((dense_m - csr_m).abs().max())
+    # rtol 1e-5, and atol 1e-5 for margins near 0: the two sum 28-term
+    # products in other orders, whose f32 error reaches about
+    # 28 * 2^-24 * sum|terms| (a few units of 1e-6 here)
+    require(dense_m.shape == csr_m.shape == (1, batch_rows)
+            and torch.allclose(dense_m, csr_m, rtol=1e-5, atol=1e-5),
+            "fm dense margin vs CSR margin", max_abs_err=dense_gap)
+
+    # the trained FM through save_model and ScoringModel
+    art = os.path.join(workdir, "fm_model.ckpt")
+    save_model(art, "fm", trained, features, step=steps)
+    held = os.path.join(workdir, "criteo_held_out.libfm")
+    write_criteo_like(held, FM_HELD_OUT, seed=4, features=features)
+    with NativeParser(held + "?format=libfm") as parser:
+        blocks = [(b.offset.astype(np.int64), b.index.astype(np.int64),
+                   b.value.copy())
+                  for b in parser]
+    require(len(blocks) == 1, "held-out rows in one block")
+    offset, col, val = blocks[0]
+    model = ScoringModel.load(art, **({} if device == "cuda"
+                                      else {"device": device}))
+    require({t.device.type for t in model.params} == {device},
+            "served FM off device")
+    row = np.repeat(np.arange(FM_HELD_OUT), np.diff(offset))
+    scores = model.scores(row, col, val, FM_HELD_OUT)
+    want64 = 1 / (1 + np.exp(-fm_margin_f64(trained, offset, col, val)))
+    serve_err = float(np.max(np.abs(scores - want64)))
+    require(scores.shape == (FM_HELD_OUT,) and np.all(np.isfinite(scores))
+            and serve_err <= 1e-5, "served FM scores vs float64 FM math",
+            max_abs_err=serve_err)
+
+    out = {"phase": "fm", "device": device, "rows": rows,
+           "batch_rows": batch_rows, "steps": steps, "features": features,
+           "k": FM_RANK, "fields": CRITEO_INT_FIELDS + CRITEO_CAT_FIELDS,
+           "reduced": {"rows": [CRITEO_ROWS, rows]},
+           "nnz_bucket": run["nnz_bucket"], "file_write_s": write_s,
+           "losses": run["losses"], "epoch_s": run["seconds"],
+           "rows_per_s": rows / run["seconds"], "step_s": run["step_s"],
+           "step_s_median": statistics.median(run["step_s"]),
+           "peak_bytes": run["peak_bytes"], "cpu_steps": cpu_steps,
+           "gaps": gap, "v_tolerance": {"rtol": FM_V_RTOL,
+                                        "atol": FM_V_ATOL},
+           "dense_vs_csr_margin_max_abs": dense_gap,
+           "serve": {"rows": FM_HELD_OUT, "max_abs_err_vs_f64": serve_err,
+                     "model_device": device}}
+    emit(out)
+    return out
+
+
+# -- phase 8: MSLR-WEB30K-shaped pairwise ranking ----------------------------
+# Microsoft Learning to Rank, MSLR-WEB30K: 136 dense features, relevance
+# labels 0-4 (about 52 / 32 / 13 / 2 / 1 % of the documents), about 120
+# documents a query. Feature ids are written 0-based (the dataset's are
+# 1-based), so the model's width is 136.
+MSLR_FEATURES = 136
+MSLR_DOCS = 3_771_125      # the dataset's documents (all five folds)
+RANK_BATCH_ROWS = 8192     # the R ceiling of objective="pairwise"
+RANK_ROWS = 8 * RANK_BATCH_ROWS
+# top shares of a query's documents that get labels 4, 3, 2, 1
+MSLR_LABEL_TOPS = (0.01, 0.03, 0.16, 0.48)
+
+
+def write_mslr_like(path: str, rows: int, seed: int) -> int:
+    """A libsvm file with ``qid:`` shaped like MSLR-WEB30K: query groups of
+    seeded sizes (20-220 documents, mean 120), 136 features of seeded
+    normals with four decimals, labels 0-4 from each document's place in
+    its query under a seeded linear score plus noise. Every token is
+    fixed width, built as one byte matrix. Returns the query count."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < rows:
+        sizes.append(int(rng.integers(20, 221)))
+    qid = np.repeat(np.arange(len(sizes)), sizes)[:rows]
+    x = rng.standard_normal((rows, MSLR_FEATURES), dtype=np.float32)
+    score = x @ rng.standard_normal(MSLR_FEATURES).astype(np.float32) + \
+        4 * rng.standard_normal(rows, dtype=np.float32)
+    order = np.lexsort((score, qid))        # by query, then score
+    start = np.searchsorted(qid, qid)       # qid is sorted
+    size = np.bincount(qid)[qid]
+    rank = np.empty(rows, np.int64)
+    rank[order] = np.arange(rows) - start[order]
+    top = (size - 1 - rank + 0.5) / size    # 0 = the query's best
+    label = sum((top < t).astype(np.int64) for t in MSLR_LABEL_TOPS)
+    q = np.minimum(np.rint(np.abs(x) * 1e4), 99999).astype(np.int64)
+    width = 1 + 10 + MSLR_FEATURES * 12 + 1
+    buf = np.empty((rows, width), np.uint8)
+    buf[:, 0] = ord("0") + label
+    buf[:, 1:6] = np.frombuffer(b" qid:", np.uint8)
+    put_digits(buf, 6, qid, 5)
+    pos = 11
+    for j in range(MSLR_FEATURES):
+        buf[:, pos] = ord(" ")
+        put_digits(buf, pos + 1, np.full(rows, j), 3)
+        buf[:, pos + 4] = ord(":")
+        buf[:, pos + 5] = np.where(x[:, j] < 0, ord("-"), ord("0"))
+        put_digits(buf, pos + 6, q[:, j] // 10000, 1)
+        buf[:, pos + 7] = ord(".")
+        put_digits(buf, pos + 8, q[:, j] % 10000, 4)
+        pos += 12
+    buf[:, pos] = ord("\n")
+    buf.tofile(path)
+    return int(qid[-1]) + 1
+
+
+def rank_epoch(uri: str, device: str, batch_rows: int) -> dict:
+    """One epoch of LinearLearner(136, objective="pairwise") on the dense
+    layout: losses, parameters, step times, peak device memory."""
+    learner = LinearLearner(MSLR_FEATURES, objective="pairwise",
+                            device=device)
+    params = learner.init()
+    losses, step_s = [], []
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with device_iter.DeviceRowBlockIter(uri, batch_rows=batch_rows,
+                                        layout="dense", device=device) as it:
+        for batch in it:
+            ts = time.perf_counter()
+            params, loss = learner.step(params, batch)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - ts)
+    return {"losses": losses, "w": params.w.cpu().numpy(),
+            "b": float(params.b), "step_s": step_s,
+            "seconds": time.perf_counter() - t0,
+            "peak_bytes": (torch.cuda.max_memory_allocated()
+                           if device == "cuda" else None)}
+
+
+def rank_phase(workdir: str, data: dict, device: str = "cuda",
+               rows: int = RANK_ROWS,
+               batch_rows: int = RANK_BATCH_ROWS) -> dict:
+    """MSLR-shaped pairwise ranking: one epoch on ``device`` against the
+    port's CPU run at rtol 1e-5, then the learner's two refusals."""
+    path = os.path.join(workdir, "mslr_like.libsvm")
+    t0 = time.perf_counter()
+    queries = write_mslr_like(path, rows, seed=5)
+    write_s = time.perf_counter() - t0
+    run = rank_epoch(path, device, batch_rows)
+    steps = -(-rows // batch_rows)
+    require(len(run["losses"]) == steps and np.all(np.isfinite(run["losses"]))
+            and np.all(np.isfinite(run["w"])), "rank epoch",
+            losses=run["losses"])
+    cpu = rank_epoch(path, "cpu", batch_rows)
+    gap = compare(run, cpu, f"rank {device} vs cpu")
+    # the reference's refusals: R past the ceiling, and data without qids
+    refusals = {}
+    for name, uri, width, rows_, match in (
+            ("oversized", path, MSLR_FEATURES, 2 * RANK_BATCH_ROWS,
+             "R=16384 rows per shard"),
+            ("no_qid", data["text"], FEATURES, batch_rows, "needs qid")):
+        learner = LinearLearner(width, objective="pairwise", device=device)
+        with device_iter.DeviceRowBlockIter(uri, batch_rows=rows_,
+                                            layout="dense",
+                                            device=device) as it:
+            batch = next(iter(it))
+            try:
+                learner.step(learner.init(), batch)
+            except ValueError as e:
+                refusals[name] = str(e)
+        require(match in refusals.get(name, ""), f"rank refusal {name}",
+                got=refusals.get(name))
+    out = {"phase": "rank", "device": device, "rows": rows,
+           "batch_rows": batch_rows, "steps": steps,
+           "features": MSLR_FEATURES, "queries": queries,
+           "reduced": {"rows": [MSLR_DOCS, rows]}, "file_write_s": write_s,
+           "losses": run["losses"], "epoch_s": run["seconds"],
+           "rows_per_s": rows / run["seconds"], "step_s": run["step_s"],
+           "step_s_median": statistics.median(run["step_s"]),
+           "peak_bytes": run["peak_bytes"], "cpu_epoch_s": cpu["seconds"],
+           "gaps": gap, "refusals": refusals}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -989,17 +1552,28 @@ def main() -> int:
     emit({"phase": "build", "kernel_s": t1 - t0, "native_s": t2 - t1,
           "ptxas": [ln for ln in kernel_log.splitlines() if "ptxas" in ln]})
 
-    cases = kernels_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        run, params = train_phase(workdir)
+        data = write_higgs_files(workdir)
+        emit({"phase": "data", **{k: data[k] for k in (
+            "rows", "bytes", "text_write_s", "crec_convert_s",
+            "drec_convert_s")}})
+        cases = kernels_phase([crec_kernel_case(data["crec"])])
+        run, params = train_phase(data["text"])
         serve_phase(workdir, params)
+        lanes = lanes_phase(data, {"losses": run["losses"],
+                                   "w": params.w.cpu().numpy(),
+                                   "b": float(params.b)})
+        fm_phase(workdir, data)
+        rank_phase(workdir, data)
 
     main_case = cases["train_65536x28"]
     emit({"kernels": [{
         "name": "csr_to_dense", "route": "cuda",
         "source": "dmlc_core_tpu_torch/csrc/csr_to_dense.cu",
         "replaces": "dmlc_core_tpu/ops/pallas_kernels.py:58",
-        "launches": run["launches"]["csr_to_dense"],
+        # the paths that launch it, each counted on its own run
+        "launches": (run["launches"]["csr_to_dense"]
+                     + lanes["launches"]["csr_to_dense"]),
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3,

@@ -1,18 +1,32 @@
-"""Device-resident row-block iteration: libsvm text to CUDA batches.
+"""Device-resident row-block iteration: data files to CUDA batches.
 
 Port of ``dmlc_core_tpu/tpu/device_iter.py`` for one device:
 
-  native parse + fused fill into pinned staging buffers (PaddedBatch /
+  host batcher: fill into pinned staging buffers (PaddedBatch /
   DenseBatch, static shapes, shard-major packed planes)
         -> staging thread (queue of depth ``prefetch``)
         -> transfer thread: host->device copy on a side CUDA stream
         -> consumer: its stream waits on the copy's event
 
+The host batcher is picked by the lane, as in the reference:
+
+- text (libsvm/csv/libfm, ``.rec``): :class:`NativeHostBatcher`, one
+  native parse + fill pass; CSR values as float32 or, with
+  ``csr_val_dtype="bf16"``, as a separate bfloat16 ``val16`` leaf;
+- ``.crec`` (``fmt="crec"``): :class:`CsrRecHostBatcher`, records already
+  in device layout, one static nnz bucket for the whole epoch;
+- ``.drec`` (``fmt="recd"``): :class:`DenseRecHostBatcher`, row matrices
+  copied as they are;
+- ``index64=True``: :class:`HostBatcher`, Python batching of blocks parsed
+  with 64-bit ids, refusing any id or qid that the int32 layout cannot
+  hold.
+
 The static-shape rules are the reference's: ``batch_rows`` rows per batch
 (the last one padded with zero-weight rows), nnz bucketed to the next power
-of two (floor ``min_nnz_bucket``), per-nonzero local row ids with padding
-nonzeros on row ``rows_per_shard``. Batches keep the leading device axis
-D (1 in this slice) so that the multi-device slice can use D > 1.
+of two (floor ``min_nnz_bucket``; the ``.crec`` lane's bucket comes from
+the file's window table), per-nonzero local row ids with padding nonzeros
+on row ``rows_per_shard``. Batches keep the leading device axis D (1 so
+far) so that the multi-device slice can use D > 1.
 
 The device half replaces ``jax.device_put``. Staging buffers come from
 pinned memory (``torch.empty(..., pin_memory=True)``, 64-byte aligned for
@@ -41,10 +55,14 @@ import torch
 from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.base import DMLCError, resolve_device
 from dmlc_core_tpu_torch.device.sharding import local_device_count
-from dmlc_core_tpu_torch.io.native import BF16_STORAGE, NativeBatcher
+from dmlc_core_tpu_torch.io.native import (BF16_STORAGE, NativeBatcher,
+                                           NativeCsrRecBatcher,
+                                           NativeDenseRecBatcher,
+                                           NativeParser, bf16_bits)
 
-__all__ = ["PaddedBatch", "DenseBatch", "DeviceRowBlockIter",
-           "NativeHostBatcher", "unpack_tree", "unpack_shard"]
+__all__ = ["PaddedBatch", "DenseBatch", "DeviceRowBlockIter", "HostBatcher",
+           "NativeHostBatcher", "CsrRecHostBatcher", "DenseRecHostBatcher",
+           "unpack_tree", "unpack_shard"]
 
 _lane_metrics = None
 
@@ -109,9 +127,12 @@ class PaddedBatch:
 
     Packed transfer layout: ``big`` [D, Kb, NNZ] int32 stacks row/col/val
     (f32 bits)[/field] and ``aux`` [D, K, R] int32 stacks label bits/
-    weight bits[/qid]/nrows plane, shard-major. Host batches carry both
-    the packs and named views into them; device batches carry only the
-    packs, which consumers decode with :func:`unpack_shard`."""
+    weight bits[/qid]/nrows plane, shard-major. With bfloat16 values
+    (``csr_val_dtype="bf16"``) the values travel as a separate ``val16``
+    leaf [D, NNZ] (uint16 bits on the host, ``torch.bfloat16`` on the
+    device) and ``big`` has no val plane. Host batches carry both the
+    packs and named views into them; device batches carry only the packs,
+    which consumers decode with :func:`unpack_shard`."""
     row: Any = None
     col: Any = None
     val: Any = None
@@ -123,6 +144,7 @@ class PaddedBatch:
     field: Any = None
     big: Any = None
     aux: Any = None
+    val16: Any = None
 
     @property
     def rows_per_shard(self) -> int:
@@ -134,10 +156,13 @@ class PaddedBatch:
         return self.big.shape[2] if self.row is None else self.row.shape[1]
 
     def tree(self) -> Dict[str, Any]:
-        """The batch as a flat dict: the packed leaves when packed, the
-        named leaves otherwise."""
+        """The batch as a flat dict: the packed leaves (and the bf16
+        values as ``val``) when packed, the named leaves otherwise."""
         if self.aux is not None:
-            return {"big": self.big, "aux": self.aux}
+            t = {"big": self.big, "aux": self.aux}
+            if self.val16 is not None:
+                t["val"] = self.val16
+            return t
         t = {"row": self.row, "col": self.col, "val": self.val,
              "label": self.label, "weight": self.weight,
              "nrows": self.nrows}
@@ -186,8 +211,9 @@ class DenseBatch:
 # Shard-major packs: aux [D, K, R], big [D, Kb, NNZ]. Plane order, aux:
 # 0=label (f32 bits), 1=weight (f32 bits), [2=qid], last=nrows plane (entry
 # [d, -1, 0] holds shard d's true row count). big: 0=row, 1=col, 2=val (f32
-# bits), [3=field]. Float planes travel as raw bits and are reinterpreted
-# (a view, not a cast) on either side.
+# bits) unless a separate bf16 ``val`` leaf travels, [last=field]. Float
+# planes travel as raw bits and are reinterpreted (a view, not a cast) on
+# either side.
 
 def _view_aux(aux: np.ndarray):
     """Named [D, R] views over a host [D, K, R] aux pack."""
@@ -197,9 +223,13 @@ def _view_aux(aux: np.ndarray):
     return aux, label, weight, qid
 
 
-def _view_big(big: np.ndarray):
-    """Named [D, NNZ] row/col/val[/field] views over a host [D, Kb, NNZ]
-    pack."""
+def _view_big(big: np.ndarray, has_val: bool = True):
+    """Named [D, NNZ] row/col[/val][/field] views over a host [D, Kb, NNZ]
+    pack; ``has_val=False`` when the values travel as a separate bf16
+    leaf (val is then None)."""
+    if not has_val:
+        field = big[:, 2] if big.shape[1] == 3 else None
+        return big[:, 0], big[:, 1], None, field
     field = big[:, 3] if big.shape[1] == 4 else None
     return big[:, 0], big[:, 1], big[:, 2].view(np.float32), field
 
@@ -238,11 +268,17 @@ def _unpack(tree: Dict[str, Any], sel, nrows_of) -> Dict[str, Any]:
         out["x"] = tree["x"]
     if "big" in tree:
         big = tree["big"]
+        kb = big.shape[-2]
         out["row"] = sel(big, 0)
         out["col"] = sel(big, 1)
-        out["val"] = _bitcast_f32(sel(big, 2))
-        if big.shape[-2] == 4:
-            out["field"] = sel(big, 3)
+        if "val" in tree:  # separate bf16 value leaf; no val plane
+            out["val"] = tree["val"]
+            if kb == 3:
+                out["field"] = sel(big, 2)
+        else:
+            out["val"] = _bitcast_f32(sel(big, 2))
+            if kb == 4:
+                out["field"] = sel(big, 3)
     out["label"] = _bitcast_f32(sel(aux, 0))
     out["weight"] = _bitcast_f32(sel(aux, 1))
     if aux.shape[-2] == 4:
@@ -293,23 +329,285 @@ class _HostBufferPool:
                 lst.append(arrs)
 
 
+def _check_shards(batch_rows: int, num_shards: int) -> None:
+    if batch_rows % num_shards != 0:
+        raise DMLCError(
+            f"batch_rows={batch_rows} must divide by shards={num_shards}")
+
+
+def _shard_nrows(take: int, D: int, R: int) -> np.ndarray:
+    """True row count of each of D shards of R rows holding ``take``."""
+    return np.minimum(np.maximum(take - np.arange(D) * R, 0),
+                      R).astype(np.int32)
+
+
+class HostBatcher:
+    """Fixed-row-count host batches assembled in numpy from native
+    RowBlocks: the ``index64=True`` lane, whose parser reads 64-bit
+    feature ids. The device layout stays int32, so a feature id or qid of
+    2^31 or more raises instead of wrapping into a wrong column. Native
+    blocks have arbitrary sizes (one per parser worker per chunk), so rows
+    are split and merged here to make ``batch_rows`` exactly."""
+
+    def __init__(self, parser: NativeParser, batch_rows: int,
+                 num_shards: int, min_nnz_bucket: int = 4096,
+                 layout: str = "auto", dense_max_features: int = 512,
+                 dense_dtype=np.float32, pin: bool = False):
+        _check_shards(batch_rows, num_shards)
+        if layout not in ("auto", "csr", "dense"):
+            raise DMLCError(f"unknown layout {layout!r}")
+        self.parser = parser
+        self.batch_rows = batch_rows
+        self.num_shards = num_shards
+        self.min_nnz_bucket = min_nnz_bucket
+        self.layout = layout
+        self.dense_max_features = dense_max_features
+        self.dense_dtype = _dense_dtype_of(dense_dtype)
+        self.pin = pin
+        self._num_features: Optional[int] = None
+        # leftover rows of earlier blocks: (label, weight, lens, col, val,
+        # qid, field) numpy copies
+        self._pending: list = []
+        self._pending_rows = 0
+        self._done = False
+        self._has_qid = False
+        self._has_field = False
+        # plane presence pins on the first batch (static batch structure)
+        self._emit_qid: Optional[bool] = None
+        self._emit_field: Optional[bool] = None
+        self._pool = _HostBufferPool()
+
+    def _empty(self, shape, dtype) -> np.ndarray:
+        return _aligned_empty(shape, dtype, pin=self.pin)
+
+    def recycle(self, batch) -> None:
+        """Return a consumed host batch's buffers for reuse (the contract
+        of :meth:`NativeHostBatcher.recycle`); every plane is rewritten on
+        reuse."""
+        if not isinstance(getattr(batch, "aux", None), np.ndarray):
+            return
+        if isinstance(batch, DenseBatch):
+            self._pool.put(("dense", batch.x.shape[-1], batch.x.dtype),
+                           (batch.x.reshape(self.batch_rows, -1), batch.aux))
+        else:
+            self._pool.put(("csr", batch.big.shape[-1]),
+                           (batch.big, batch.aux))
+
+    def _block_to_parts(self, b) -> tuple:
+        lens = np.diff(b.offset).astype(np.int32)
+        # the device layout is int32: an id >= 2^31 would wrap negative
+        # and land in a wrong column, so refuse it (the native batcher
+        # does the same in PaddedBatcher::Accumulate)
+        if b.nnz:
+            mx = int(b.max_index) or int(b.index.max())
+            if mx > np.iinfo(np.int32).max:
+                raise DMLCError(
+                    f"feature index {mx} exceeds the int32 device layout "
+                    f"(max {np.iinfo(np.int32).max}); remap feature ids "
+                    f"below 2^31 for the device batch layout")
+        col = b.index.astype(np.int32, copy=True)
+        val = (b.value.astype(np.float32, copy=True) if b.value is not None
+               else np.ones(b.nnz, dtype=np.float32))
+        label = b.label.astype(np.float32, copy=True)
+        weight = (b.weight.astype(np.float32, copy=True)
+                  if b.weight is not None
+                  else np.ones(b.num_rows, dtype=np.float32))
+        qid = fld = None
+        if b.qid is not None:
+            self._has_qid = True
+            if b.qid.max(initial=0) > np.iinfo(np.int32).max:
+                raise DMLCError(
+                    f"qid {int(b.qid.max())} exceeds the int32 device "
+                    f"layout")
+            qid = b.qid.astype(np.int32)
+        if b.field is not None:
+            self._has_field = True
+            fld = b.field.astype(np.int32)
+        return label, weight, lens, col, val, qid, fld
+
+    def _take_rows(self, take: int) -> list:
+        """Pop ``take`` rows off the pending pieces, splitting one."""
+        parts, got = [], 0
+        while got < take:
+            label, weight, lens, col, val, qid, fld = self._pending[0]
+            n = len(label)
+            if got + n <= take:
+                parts.append(self._pending.pop(0))
+                got += n
+                continue
+            keep = take - got
+            nz = int(lens[:keep].sum())
+            head = (label[:keep], weight[:keep], lens[:keep], col[:nz],
+                    val[:nz], None if qid is None else qid[:keep],
+                    None if fld is None else fld[:nz])
+            self._pending[0] = (label[keep:], weight[keep:], lens[keep:],
+                                col[nz:], val[nz:],
+                                None if qid is None else qid[keep:],
+                                None if fld is None else fld[nz:])
+            parts.append(head)
+            got = take
+        return parts
+
+    def next_batch(self):
+        """The next static-shape host batch (None at end)."""
+        while self._pending_rows < self.batch_rows and not self._done:
+            b = self.parser.next_block()
+            if b is None:
+                self._done = True
+                break
+            self._pending.append(self._block_to_parts(b))
+            self._pending_rows += len(self._pending[-1][0])
+        if self._pending_rows == 0:
+            return None
+        if self._emit_qid is None:
+            self._emit_qid, self._emit_field = self._has_qid, self._has_field
+        elif (self._has_qid and not self._emit_qid) or (
+                self._has_field and not self._emit_field):
+            raise DMLCError(
+                "qid/field column appeared mid-stream after the batch "
+                "structure was pinned without it; order the inputs so the "
+                "first batch carries the column")
+        take = min(self.batch_rows, self._pending_rows)
+        parts = self._take_rows(take)
+        self._pending_rows -= take
+        label, weight, lens, col, val = (
+            np.concatenate([p[i] for p in parts]) for i in range(5))
+        # sentinels (qid -1, field 0) only when the stream has the column
+        qid = (np.concatenate(
+            [p[5] if p[5] is not None else np.full(len(p[0]), -1, np.int32)
+             for p in parts]) if self._emit_qid else np.empty(0, np.int32))
+        fld = (np.concatenate(
+            [p[6] if p[6] is not None else np.zeros(len(p[3]), np.int32)
+             for p in parts]) if self._emit_field
+            else np.empty(0, np.int32))
+        D = self.num_shards
+        R = self.batch_rows // D
+        if take < self.batch_rows:  # pad rows (weight 0: no gradient)
+            pad = self.batch_rows - take
+            label = np.concatenate([label, np.zeros(pad, np.float32)])
+            weight = np.concatenate([weight, np.zeros(pad, np.float32)])
+            lens = np.concatenate([lens, np.zeros(pad, np.int32)])
+            if self._emit_qid:
+                qid = np.concatenate([qid, np.full(pad, -1, np.int32)])
+        if self.layout == "auto":
+            # decided once, on the first batch; field-aware data has no
+            # dense representation
+            max_idx = int(col.max()) if len(col) else 0
+            self.layout = ("dense" if not self._emit_field
+                           and max_idx + 1 <= self.dense_max_features
+                           else "csr")
+        if self.layout == "dense":
+            if self._emit_field:
+                raise DMLCError(
+                    "field ids have no dense layout; pass layout='csr' for "
+                    "field-aware (libfm) data")
+            return self._emit_dense(take, label, weight, lens, col, val, qid)
+
+        # split the nonzeros by shard; bucket to the largest shard's
+        row_of = np.repeat(np.arange(self.batch_rows, dtype=np.int32), lens)
+        shard_starts = np.concatenate(
+            [[0], np.cumsum(lens.reshape(D, R).sum(axis=1))]).astype(np.int64)
+        bucket = _next_pow2(int(np.diff(shard_starts).max()) if take else 1,
+                            self.min_nnz_bucket)
+        kb = 4 if self._emit_field else 3
+        pooled = self._pool.pop(("csr", bucket))
+        big, aux = pooled if pooled is not None else (None, None)
+        if big is None or big.shape[1] != kb:
+            big = self._empty((D, kb, bucket), np.int32)
+        row, colp, valp, fldp = _view_big(big)
+        row[:] = R  # the padding segment
+        colp[:] = 0
+        valp[:] = 0.0
+        if fldp is not None:
+            fldp[:] = 0
+        for d in range(D):
+            lo, hi = shard_starts[d], shard_starts[d + 1]
+            n = hi - lo
+            row[d, :n] = row_of[lo:hi] - d * R  # local row ids
+            colp[d, :n] = col[lo:hi]
+            valp[d, :n] = val[lo:hi]
+            if fldp is not None:
+                fldp[d, :n] = fld[lo:hi]
+        nrows = _shard_nrows(take, D, R)
+        if aux is None or aux.shape != (D, 4 if self._emit_qid else 3, R):
+            aux = self._empty((D, 4 if self._emit_qid else 3, R), np.int32)
+        aux, label_v, weight_v, qid_v = _pack_aux(
+            label, weight, qid, nrows, D, R, self._emit_qid, aux=aux)
+        return PaddedBatch(row=row, col=colp, val=valp, label=label_v,
+                           weight=weight_v, nrows=nrows,
+                           total_rows=int(take), qid=qid_v, field=fldp,
+                           big=big, aux=aux)
+
+    def _emit_dense(self, take, label, weight, lens, col, val, qid):
+        D = self.num_shards
+        R = self.batch_rows // D
+        if self._num_features is None:
+            self._num_features = int(col.max()) + 1 if len(col) else 1
+        F = self._num_features
+        mx = int(col.max()) + 1 if len(col) else 1
+        if mx > F:
+            raise DMLCError(
+                f"dense layout fixed at {F} features but saw index {mx - 1}; "
+                f"pass layout='csr' or a larger dense_max_features")
+        pooled = self._pool.pop(("dense", F, self.dense_dtype))
+        x, aux = pooled if pooled is not None else (None, None)
+        if x is None:
+            x = self._empty((self.batch_rows, F), self.dense_dtype)
+        x.fill(0)  # the scatter below touches present entries only
+        row_of = np.repeat(np.arange(self.batch_rows, dtype=np.int64), lens)
+        # bf16 storage: the native core's rounding, as the fills round
+        x[row_of, col] = (bf16_bits(val) if self.dense_dtype == BF16_STORAGE
+                          else val)
+        nrows = _shard_nrows(take, D, R)
+        if aux is None or aux.shape != (D, 4 if self._emit_qid else 3, R):
+            aux = self._empty((D, 4 if self._emit_qid else 3, R), np.int32)
+        aux, label_v, weight_v, qid_v = _pack_aux(
+            label, weight, qid, nrows, D, R, self._emit_qid, aux=aux)
+        return DenseBatch(x=x.reshape(D, R, F), label=label_v,
+                          weight=weight_v, nrows=nrows,
+                          total_rows=int(take), qid=qid_v, aux=aux)
+
+    def reset(self) -> None:
+        """Restart from the first row (new epoch)."""
+        self.parser.before_first()
+        self._pending.clear()
+        self._pending_rows = 0
+        self._done = False
+
+    def set_epoch(self, epoch: int) -> bool:
+        """Pin the shuffle permutation the next reset() samples."""
+        return self.parser.set_epoch(epoch)
+
+    def bytes_read(self) -> int:
+        """Bytes consumed from the source so far."""
+        return self.parser.bytes_read()
+
+    def close(self) -> None:
+        """Free the parser's native handle (idempotent)."""
+        self.parser.close()
+
+
 class NativeHostBatcher:
     """Fixed-row-count host batches from the C++ PaddedBatcher
     (cpp/src/batcher.h): next_meta() stages a batch, Python allocates (or
     reuses) the staging buffers, and one GIL-free native pass fills them.
-    Layouts: ``csr`` (float32 values) and ``dense`` (float32 or bf16)."""
+    Layouts: ``csr`` (float32 values, or with ``csr_val_dtype="bf16"`` a
+    separate bfloat16 value leaf that the fill rounds to nearest even) and
+    ``dense`` (float32 or bf16)."""
 
     def __init__(self, uri: str, part: int = 0, npart: int = 1,
                  fmt: str = "auto", nthread: int = 0,
                  batch_rows: int = 65536, num_shards: int = 1,
                  min_nnz_bucket: int = 4096, layout: str = "auto",
                  dense_max_features: int = 512, dense_dtype=np.float32,
-                 pin: bool = False):
-        if batch_rows % num_shards != 0:
-            raise DMLCError(
-                f"batch_rows={batch_rows} must divide by shards={num_shards}")
+                 csr_val_dtype: str = "f32", pin: bool = False):
+        _check_shards(batch_rows, num_shards)
         if layout not in ("auto", "csr", "dense"):
             raise DMLCError(f"unknown layout {layout!r}")
+        if csr_val_dtype not in ("f32", "bf16"):
+            raise DMLCError(f"unknown csr_val_dtype {csr_val_dtype!r} "
+                            f"(expected 'f32' or 'bf16')")
+        self._csr_bf16 = csr_val_dtype == "bf16"
         self.dense_dtype = _dense_dtype_of(dense_dtype)
         self._b = NativeBatcher(uri, part=part, npart=npart, fmt=fmt,
                                 nthread=nthread, batch_rows=batch_rows,
@@ -375,23 +673,28 @@ class NativeHostBatcher:
             return DenseBatch(x=x.reshape(D, R, F), label=label,
                               weight=weight, nrows=nrows,
                               total_rows=int(take), qid=qid, aux=aux)
-        kb = 4 if has_field else 3
-        pooled = self._pool.pop(("csr", bucket))
+        sep_val = self._csr_bf16
+        kb = 2 + (0 if sep_val else 1) + (1 if has_field else 0)
+        pooled = self._pool.pop(("csr", bucket, sep_val))
         if pooled is not None:
-            big, aux, nrows = pooled
+            big, val16, aux, nrows = pooled
         else:
-            big, aux, nrows = None, None, np.empty(D, np.int32)
+            big, val16, aux = None, None, None
+            nrows = np.empty(D, np.int32)
         if big is None or big.shape[1] != kb:
             big = self._empty((D, kb, bucket), np.int32)
+        if sep_val and val16 is None:
+            val16 = self._empty((D, bucket), BF16_STORAGE)
         if aux is None or aux.shape[1] != ka:
             aux = self._empty((D, ka, R), np.int32)
-        self._b.fill_packed(big, aux, nrows)
-        row, col, val, field = _view_big(big)
+        self._b.fill_packed(big, aux, nrows, val=val16)
+        row, col, val, field = _view_big(big, has_val=not sep_val)
         _, label, weight, qid = _view_aux(aux)
-        return PaddedBatch(row=row, col=col, val=val, label=label,
+        return PaddedBatch(row=row, col=col,
+                           val=val16 if sep_val else val, label=label,
                            weight=weight, nrows=nrows,
                            total_rows=int(take), qid=qid, field=field,
-                           big=big, aux=aux)
+                           big=big, aux=aux, val16=val16)
 
     def recycle(self, batch) -> None:
         """Return a consumed host batch's buffers for reuse. The caller
@@ -404,8 +707,9 @@ class NativeHostBatcher:
                            (batch.x.reshape(self.batch_rows, -1),
                             batch.aux, batch.nrows))
         else:
-            self._pool.put(("csr", batch.big.shape[-1]),
-                           (batch.big, batch.aux, batch.nrows))
+            self._pool.put(("csr", batch.big.shape[-1],
+                            batch.val16 is not None),
+                           (batch.big, batch.val16, batch.aux, batch.nrows))
 
     def reset(self) -> None:
         """Restart from the first row (new epoch); the pool survives."""
@@ -417,6 +721,147 @@ class NativeHostBatcher:
 
     def bytes_read(self) -> int:
         """Bytes consumed from the source so far."""
+        return self._b.bytes_read()
+
+    def close(self) -> None:
+        """Free the native handle (idempotent)."""
+        self._b.close()
+
+
+class CsrRecHostBatcher:
+    """Host batches from a ``.crec`` file (cpp/src/csr_rec.h): records hold
+    col/val/row-length planes in device layout, so a batch is bulk memcpy
+    plus row-id expansion straight into the packs, in one GIL-free native
+    pass. The per-shard nnz bucket is static for the epoch (the file's
+    window table bounds it). Emits the text CSR lane's PaddedBatch."""
+
+    def __init__(self, uri: str, part: int = 0, npart: int = 1,
+                 batch_rows: int = 65536, num_shards: int = 1,
+                 min_nnz_bucket: int = 4096, pin: bool = False):
+        _check_shards(batch_rows, num_shards)
+        self._b = NativeCsrRecBatcher(uri, part=part, npart=npart,
+                                      batch_rows=batch_rows,
+                                      num_shards=num_shards,
+                                      min_nnz_bucket=min_nnz_bucket)
+        self.batch_rows = batch_rows
+        self.num_shards = num_shards
+        self.pin = pin
+        self._meta = None
+        self._pool = _HostBufferPool()
+
+    def recycle(self, batch) -> None:
+        """Return a consumed host batch's buffers for reuse (the contract
+        of :meth:`NativeHostBatcher.recycle`)."""
+        if not isinstance(getattr(batch, "aux", None), np.ndarray):
+            return
+        self._pool.put(("crec", batch.big.shape[-1]),
+                       (batch.big, batch.aux, batch.nrows))
+
+    def next_batch(self) -> Optional[PaddedBatch]:
+        """The next static-shape host batch (None at end)."""
+        if self._meta is None:
+            self._meta = self._b.meta()
+        bucket, _, has_qid, has_field = self._meta
+        D = self.num_shards
+        R = self.batch_rows // D
+        pooled = self._pool.pop(("crec", bucket))
+        if pooled is not None:
+            big, aux, nrows = pooled
+        else:
+            big = _aligned_empty((D, 4 if has_field else 3, bucket),
+                                 np.int32, pin=self.pin)
+            aux = _aligned_empty((D, 4 if has_qid else 3, R), np.int32,
+                                 pin=self.pin)
+            nrows = np.empty(D, np.int32)
+        take = self._b.fill_packed(big, aux, nrows)
+        if take == 0:
+            return None
+        row, col, val, field = _view_big(big)
+        _, label, weight, qid = _view_aux(aux)
+        return PaddedBatch(row=row, col=col, val=val, label=label,
+                           weight=weight, nrows=nrows,
+                           total_rows=int(take), qid=qid, field=field,
+                           big=big, aux=aux)
+
+    def reset(self) -> None:
+        """Restart from the first record (new epoch); the pool survives."""
+        self._b.before_first()
+
+    def set_epoch(self, epoch: int) -> bool:
+        """Pin the shuffle permutation the next reset() samples."""
+        return self._b.set_epoch(epoch)
+
+    def bytes_read(self) -> int:
+        """Record bytes consumed from the source so far."""
+        return self._b.bytes_read()
+
+    def close(self) -> None:
+        """Free the native handle (idempotent)."""
+        self._b.close()
+
+
+class DenseRecHostBatcher:
+    """Host batches from a ``.drec`` file (cpp/src/dense_rec.h): records
+    hold [rows, F] matrices in device layout, so a batch is record framing
+    plus bulk memcpy (converting float32 <-> bf16 where the file and
+    ``dense_dtype`` differ). Emits the dense text lane's DenseBatch."""
+
+    def __init__(self, uri: str, part: int = 0, npart: int = 1,
+                 batch_rows: int = 65536, num_shards: int = 1,
+                 dense_dtype=np.float32, pin: bool = False):
+        _check_shards(batch_rows, num_shards)
+        self._b = NativeDenseRecBatcher(uri, part=part, npart=npart,
+                                        batch_rows=batch_rows,
+                                        num_shards=num_shards)
+        self.batch_rows = batch_rows
+        self.num_shards = num_shards
+        self.dense_dtype = _dense_dtype_of(dense_dtype)
+        self.pin = pin
+        self._F: Optional[int] = None
+        self._pool = _HostBufferPool()
+
+    def recycle(self, batch) -> None:
+        """Return a consumed host batch's buffers for reuse (the contract
+        of :meth:`NativeHostBatcher.recycle`)."""
+        if not isinstance(getattr(batch, "aux", None), np.ndarray):
+            return
+        self._pool.put(("drec", batch.x.shape[-1]),
+                       (batch.x.reshape(self.batch_rows, -1), batch.aux,
+                        batch.nrows))
+
+    def next_batch(self) -> Optional[DenseBatch]:
+        """The next static-shape host batch (None at end)."""
+        if self._F is None:
+            self._F = max(int(self._b.meta()[0]), 1)
+        F = self._F
+        D = self.num_shards
+        R = self.batch_rows // D
+        pooled = self._pool.pop(("drec", F))
+        if pooled is not None:
+            x, aux, nrows = pooled
+        else:
+            x = _aligned_empty((self.batch_rows, F), self.dense_dtype,
+                               pin=self.pin)
+            aux = _aligned_empty((D, 3, R), np.int32, pin=self.pin)
+            nrows = np.empty(D, np.int32)
+        take = self._b.fill_packed(x, aux, nrows)
+        if take == 0:
+            return None
+        _, label, weight, _ = _view_aux(aux)
+        return DenseBatch(x=x.reshape(D, R, F), label=label, weight=weight,
+                          nrows=nrows, total_rows=int(take), aux=aux)
+
+    def reset(self) -> None:
+        """Restart from the first record (new epoch); the pool survives."""
+        self._b.before_first()
+
+    def set_epoch(self, epoch: int) -> bool:
+        """Pin the shuffle permutation the next reset() samples (always
+        False: the dense-rec split does not shuffle)."""
+        return self._b.set_epoch(epoch)
+
+    def bytes_read(self) -> int:
+        """Record bytes consumed from the source so far."""
         return self._b.bytes_read()
 
     def close(self) -> None:
@@ -436,8 +881,11 @@ class DeviceRowBlockIter:
     ``prefetch=0`` everything runs inline on the caller's thread.
 
     ``device`` defaults to ``cuda`` and raises when CUDA is missing; pass
-    ``device="cpu"`` to run on the CPU. ``fmt`` "crec"/"recd", ``index64``
-    and ``csr_val_dtype="bf16"`` are refused until their slice lands."""
+    ``device="cpu"`` to run on the CPU. The lane follows ``fmt`` (``auto``
+    reads the suffix: ``.drec`` -> ``recd``, ``.crec`` -> ``crec``,
+    ``.rec`` -> ``rec``) and ``index64``; bf16 CSR values
+    (``csr_val_dtype="bf16"``) are a text/rec-lane option and are refused
+    on the crec, recd and index64 lanes, as in the reference."""
 
     _SHUTDOWN = object()
 
@@ -459,25 +907,41 @@ class DeviceRowBlockIter:
             fmt = "crec"
         elif fmt == "auto" and path_part.endswith(".rec"):
             fmt = "rec"
-        lane = ("ROADMAP.md queue 1, 'DeviceRowBlockIter lanes: crec, recd, "
-                "index64, bf16 values'")
-        if fmt in ("crec", "recd"):
-            raise DMLCError(f"fmt={fmt!r} is not ported yet ({lane})")
-        if index64:
-            raise DMLCError(f"index64=True is not ported yet ({lane})")
-        if csr_val_dtype != "f32":
+        if csr_val_dtype != "f32" and (fmt in ("recd", "crec") or index64):
             raise DMLCError(
-                f"csr_val_dtype={csr_val_dtype!r} is not ported yet ({lane})")
+                "csr_val_dtype='bf16' is a native text/rec-lane feature "
+                "(the fused fill converts values in-pass); the crec/recd "
+                "binary lanes and the index64 python batcher keep f32")
         self.batch_rows = batch_rows
-        # determinism keys for mid-epoch resume (state()/restore())
+        # determinism keys for mid-epoch resume (state()/restore()), after
+        # the suffix rule, so fmt="auto" and the explicit format agree
         self._identity = {"uri": uri, "part": part, "npart": npart,
                           "fmt": fmt, "batch_rows": batch_rows}
-        self.batcher = NativeHostBatcher(
-            uri, part=part, npart=npart, fmt=fmt, nthread=nthread,
-            batch_rows=batch_rows, num_shards=num_shards,
-            min_nnz_bucket=min_nnz_bucket, layout=layout,
-            dense_max_features=dense_max_features, dense_dtype=dense_dtype,
-            pin=self.device.type == "cuda")
+        pin = self.device.type == "cuda"
+        if fmt == "recd":
+            self.batcher = DenseRecHostBatcher(
+                uri, part=part, npart=npart, batch_rows=batch_rows,
+                num_shards=num_shards, dense_dtype=dense_dtype, pin=pin)
+        elif fmt == "crec":
+            self.batcher = CsrRecHostBatcher(
+                uri, part=part, npart=npart, batch_rows=batch_rows,
+                num_shards=num_shards, min_nnz_bucket=min_nnz_bucket,
+                pin=pin)
+        elif index64:
+            self.batcher = HostBatcher(
+                NativeParser(uri, part=part, npart=npart, fmt=fmt,
+                             nthread=nthread, index64=True),
+                batch_rows, num_shards, min_nnz_bucket, layout=layout,
+                dense_max_features=dense_max_features,
+                dense_dtype=dense_dtype, pin=pin)
+        else:
+            self.batcher = NativeHostBatcher(
+                uri, part=part, npart=npart, fmt=fmt, nthread=nthread,
+                batch_rows=batch_rows, num_shards=num_shards,
+                min_nnz_bucket=min_nnz_bucket, layout=layout,
+                dense_max_features=dense_max_features,
+                dense_dtype=dense_dtype, csr_val_dtype=csr_val_dtype,
+                pin=pin)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._prefetch = prefetch
@@ -630,6 +1094,8 @@ class DeviceRowBlockIter:
             self.batcher.recycle(host)
         if isinstance(host, DenseBatch) and host.x.dtype == BF16_STORAGE:
             out["x"] = out["x"].view(torch.bfloat16)
+        if "val" in out:  # the separate bf16 value leaf rides val16
+            out["val16"] = out.pop("val").view(torch.bfloat16)
         return type(host)(total_rows=host.total_rows, **out), ev
 
     def _hand_over(self, item):

@@ -5,8 +5,13 @@ The port never loads the JAX package's library: it builds ``cpp/`` into
 ``make -C cpp OUT=<that path>`` (which writes nothing into ``cpp/``), under
 the package's build lock, and rebuilds only when a ``cpp/src`` file is
 newer than the library. The binding covers what the port calls: the
-threaded text parser (:class:`NativeParser`), the fused padded-batch
-assembler (:class:`NativeBatcher`), URI-dispatched byte streams
+threaded text parser (:class:`NativeParser`, 32- or 64-bit feature
+ids), the fused padded-batch assembler (:class:`NativeBatcher`), the
+binary lanes' batch fills (:class:`NativeCsrRecBatcher` for ``.crec``,
+:class:`NativeDenseRecBatcher` for ``.drec``), RecordIO framing
+(:class:`NativeRecordIOWriter`, :class:`NativeRecordIOReader`), the
+float32 -> bfloat16 conversion of the fills (:func:`bf16_bits`),
+URI-dispatched byte streams
 (:class:`NativeStream`, :func:`path_info`) for checkpoints and serving
 artifacts, the native half of the local-filesystem fault plan
 (:func:`set_fs_fault_plan`), and the native telemetry and trace documents
@@ -30,7 +35,9 @@ from dmlc_core_tpu_torch.base import (BUILD_DIR, REPO_ROOT, DMLCError,
                                       build_if_stale)
 
 __all__ = ["lib", "build", "LIB_PATH", "NativeParser", "NativeBatcher",
-           "NativeStream", "RowBlock", "BF16_STORAGE", "path_info",
+           "NativeCsrRecBatcher", "NativeDenseRecBatcher",
+           "NativeRecordIOWriter", "NativeRecordIOReader", "NativeStream",
+           "RowBlock", "BF16_STORAGE", "bf16_bits", "path_info",
            "set_fs_fault_plan", "native_telemetry_snapshot",
            "native_trace_snapshot"]
 
@@ -149,6 +156,37 @@ def _declare_signatures(cdll: ctypes.CDLL) -> None:
         "dct_batcher_set_epoch": (i, [vp, u, c.POINTER(c.c_int32)]),
         "dct_batcher_bytes_read": (i, [vp, c.POINTER(sz)]),
         "dct_batcher_free": (i, [vp]),
+        "dct_recordio_writer_create": (i, [c.c_char_p, c.POINTER(vp)]),
+        "dct_recordio_write": (i, [vp, c.c_char_p, sz]),
+        "dct_recordio_writer_free": (i, [vp]),
+        "dct_recordio_reader_create": (i, [c.c_char_p, c.POINTER(vp)]),
+        "dct_recordio_read": (i, [vp, c.POINTER(vp), c.POINTER(sz),
+                                  c.POINTER(i)]),
+        "dct_recordio_reader_free": (i, [vp]),
+        "dct_denserec_create": (i, [c.c_char_p, u, u, c.c_uint64,
+                                    c.c_uint32, c.POINTER(vp)]),
+        "dct_denserec_meta": (i, [vp, c.POINTER(c.c_uint64),
+                                  c.POINTER(c.c_int32),
+                                  c.POINTER(c.c_int32)]),
+        "dct_denserec_fill_packed": (i, [vp, vp, c.c_int32, c.c_uint64, vp,
+                                         c.c_int32, vp,
+                                         c.POINTER(c.c_uint64)]),
+        "dct_denserec_before_first": (i, [vp]),
+        "dct_denserec_set_epoch": (i, [vp, u, c.POINTER(c.c_int32)]),
+        "dct_denserec_bytes_read": (i, [vp, c.POINTER(sz)]),
+        "dct_denserec_free": (i, [vp]),
+        "dct_csrrec_create": (i, [c.c_char_p, u, u, c.c_uint64, c.c_uint32,
+                                  c.c_uint64, c.POINTER(vp)]),
+        "dct_csrrec_meta": (i, [vp, c.POINTER(c.c_uint64),
+                                c.POINTER(c.c_int32), c.POINTER(c.c_int32),
+                                c.POINTER(c.c_int32)]),
+        "dct_csrrec_fill_packed": (i, [vp, vp, c.c_int32, vp, c.c_int32,
+                                       vp, c.POINTER(c.c_uint64)]),
+        "dct_csrrec_before_first": (i, [vp]),
+        "dct_csrrec_set_epoch": (i, [vp, u, c.POINTER(c.c_int32)]),
+        "dct_csrrec_bytes_read": (i, [vp, c.POINTER(sz)]),
+        "dct_csrrec_free": (i, [vp]),
+        "dct_bf16_convert": (i, [vp, vp, c.c_uint64]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(cdll, name)
@@ -166,7 +204,7 @@ class RowBlock:
     views into native memory, valid until the parser's next call."""
 
     __slots__ = ("offset", "label", "weight", "qid", "field", "index",
-                 "value", "max_index")
+                 "value", "max_index", "max_field")
 
     def __init__(self, c: RowBlockC):
         n, nnz = c.num_rows, c.nnz
@@ -181,10 +219,13 @@ class RowBlock:
         self.index = (np.ctypeslib.as_array(
             ctypes.cast(c.index, ctypes.POINTER(idx_type)), (nnz,)) if nnz
             else np.empty(0, np.uint64 if c.index_is_64 else np.uint32))
-        # only float32 values (value_dtype 0) reach this slice's path
-        self.value = (np.ctypeslib.as_array(c.value, (nnz,))
-                      if (c.value and nnz) else None)
+        # typed csv values: value_dtype 0=float32, 1=int32, 2=int64; one
+        # array is populated
+        vptr = {1: c.value_i32, 2: c.value_i64}.get(c.value_dtype, c.value)
+        self.value = (np.ctypeslib.as_array(vptr, (nnz,))
+                      if (vptr and nnz) else None)
         self.max_index = c.max_index
+        self.max_field = c.max_field
 
     @property
     def num_rows(self) -> int:
@@ -197,15 +238,18 @@ class RowBlock:
 
 class NativeParser:
     """Multithreaded text parser producing :class:`RowBlock` views
-    (reference Parser<I,D>::Create, data.h:307). The port uses it to walk
-    a file once, e.g. to find its feature count."""
+    (reference Parser<I,D>::Create, data.h:307). ``index64`` parses
+    feature ids as uint64 (the ``index64`` device lane and the converter
+    read blocks through it)."""
 
     def __init__(self, uri: str, part: int = 0, npart: int = 1,
-                 fmt: str = "auto", nthread: int = 0, threaded: bool = True):
+                 fmt: str = "auto", nthread: int = 0, threaded: bool = True,
+                 index64: bool = False):
         self._h = ctypes.c_void_p()
         _check(lib().dct_parser_create_ex(
             uri.encode(), part, npart, fmt.encode(), nthread,
-            1 if threaded else 0, 0, 0, b"", b"", ctypes.byref(self._h)))
+            1 if threaded else 0, 1 if index64 else 0, 0, b"", b"",
+            ctypes.byref(self._h)))
 
     def next_block(self) -> Optional[RowBlock]:
         """Next parsed block, or None at end of data."""
@@ -233,6 +277,14 @@ class NativeParser:
     def before_first(self) -> None:
         """Restart parsing from the first row."""
         _check(lib().dct_parser_before_first(self._h))
+
+    def set_epoch(self, epoch: int) -> bool:
+        """Pin the shuffle permutation the next before_first() samples;
+        False when nothing in the split chain shuffles."""
+        supported = ctypes.c_int32()
+        _check(lib().dct_parser_set_epoch(self._h, epoch,
+                                          ctypes.byref(supported)))
+        return bool(supported.value)
 
     def bytes_read(self) -> int:
         """Bytes consumed from the source so far."""
@@ -306,16 +358,23 @@ class NativeBatcher:
         return ctypes.c_void_p(arr.ctypes.data)
 
     def fill_packed(self, big: np.ndarray, aux: np.ndarray,
-                    nrows: np.ndarray) -> None:
+                    nrows: np.ndarray,
+                    val: Optional[np.ndarray] = None) -> None:
         """Fused shard-major fill (batcher.h FillPacked): ``big`` is
-        [D, kb, bucket] int32 (row, col, val f32 bits, [field]), ``aux``
-        is [D, ka, R] int32 (label bits, weight bits, [qid], nrows plane)."""
+        [D, kb, bucket] int32 (row, col, [val f32 bits], [field]), ``aux``
+        is [D, ka, R] int32 (label bits, weight bits, [qid], nrows plane).
+        A separate ``val`` plane [D, bucket] of bf16 bits (uint16) makes
+        the fill convert the values (round to nearest even) and drops
+        big's val plane."""
         D = self._num_shards
         R = self._batch_rows // D
         kb, ka = big.shape[1], aux.shape[1]
         _check(lib().dct_batcher_fill_packed(
             self._h, self._ptr(big, np.int32, D * kb * self._bucket), kb,
-            None, 0, self._ptr(aux, np.int32, D * ka * R), ka,
+            None if val is None
+            else self._ptr(val, BF16_STORAGE, D * self._bucket),
+            0 if val is None else 1,
+            self._ptr(aux, np.int32, D * ka * R), ka,
             self._ptr(nrows, np.int32, D)))
 
     def fill_dense_packed(self, x: np.ndarray, aux: np.ndarray,
@@ -374,6 +433,228 @@ class NativeBatcher:
             self.close()
         except Exception:
             pass
+
+
+class _Handle:
+    """Owner of one native handle, freed by ``_FREE`` on close."""
+
+    _FREE = ""
+
+    def close(self) -> None:
+        """Free the native handle (idempotent)."""
+        if self._h:
+            h, self._h = self._h, ctypes.c_void_p()
+            _check(getattr(lib(), self._FREE)(h))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class NativeCsrRecBatcher(_Handle):
+    """Zero-rearrangement CSR ingest of ``.crec`` files (cpp/src/
+    csr_rec.h): records hold col/val/row-length planes in device batch
+    layout, so a fill is bulk memcpy plus run-length row-id expansion with
+    the GIL released. meta() reports the STATIC per-shard nnz bucket (from
+    the file's global window table); fill_packed() returns the true row
+    count (0 at end)."""
+
+    _FREE = "dct_csrrec_free"
+
+    def __init__(self, uri: str, part: int = 0, npart: int = 1,
+                 batch_rows: int = 65536, num_shards: int = 1,
+                 min_nnz_bucket: int = 4096):
+        self._h = ctypes.c_void_p()
+        self._batch_rows = batch_rows
+        self._num_shards = num_shards
+        self._bucket = 0
+        _check(lib().dct_csrrec_create(uri.encode(), part, npart,
+                                       batch_rows, num_shards,
+                                       min_nnz_bucket,
+                                       ctypes.byref(self._h)))
+
+    def meta(self):
+        """(bucket, has_weight, has_qid, has_field), static for the
+        epoch."""
+        bucket = ctypes.c_uint64()
+        hw, hq, hf = (ctypes.c_int32() for _ in range(3))
+        _check(lib().dct_csrrec_meta(self._h, ctypes.byref(bucket),
+                                     ctypes.byref(hw), ctypes.byref(hq),
+                                     ctypes.byref(hf)))
+        self._bucket = bucket.value
+        return bucket.value, bool(hw.value), bool(hq.value), bool(hf.value)
+
+    def fill_packed(self, big: np.ndarray, aux: np.ndarray,
+                    nrows: np.ndarray) -> int:
+        """Fused shard-major fill (csr_rec.h FillPacked): ``big`` is
+        [D, kb, bucket] int32 (row, col, val f32 bits, [field]), ``aux``
+        [D, ka, R] int32 (label bits, weight bits, [qid], nrows plane).
+        Returns the true row count (0 = end)."""
+        if self._bucket == 0:
+            self.meta()  # plane sizing needs the static bucket
+        D = self._num_shards
+        R = self._batch_rows // D
+        kb, ka = big.shape[1], aux.shape[1]
+        take = ctypes.c_uint64()
+        ptr = NativeBatcher._ptr
+        _check(lib().dct_csrrec_fill_packed(
+            self._h, ptr(big, np.int32, D * kb * self._bucket), kb,
+            ptr(aux, np.int32, D * ka * R), ka, ptr(nrows, np.int32, D),
+            ctypes.byref(take)))
+        return int(take.value)
+
+    def before_first(self) -> None:
+        """Restart from the first record (new epoch)."""
+        _check(lib().dct_csrrec_before_first(self._h))
+
+    def set_epoch(self, epoch: int) -> bool:
+        """Pin the shuffle permutation the next before_first() samples."""
+        supported = ctypes.c_int32()
+        _check(lib().dct_csrrec_set_epoch(self._h, epoch,
+                                          ctypes.byref(supported)))
+        return bool(supported.value)
+
+    def bytes_read(self) -> int:
+        """Record bytes consumed from the source so far."""
+        out = ctypes.c_size_t()
+        _check(lib().dct_csrrec_bytes_read(self._h, ctypes.byref(out)))
+        return out.value
+
+
+class NativeDenseRecBatcher(_Handle):
+    """Zero-parse dense ingest of ``.drec`` files (cpp/src/dense_rec.h):
+    records hold [rows, F] matrices in device layout, so a fill is record
+    framing plus bulk memcpy with the GIL released. meta() reports the
+    static shape; fill_packed() returns the true row count (0 at end)."""
+
+    _FREE = "dct_denserec_free"
+
+    def __init__(self, uri: str, part: int = 0, npart: int = 1,
+                 batch_rows: int = 65536, num_shards: int = 1):
+        self._h = ctypes.c_void_p()
+        self._batch_rows = batch_rows
+        self._num_shards = num_shards
+        _check(lib().dct_denserec_create(uri.encode(), part, npart,
+                                         batch_rows, num_shards,
+                                         ctypes.byref(self._h)))
+
+    def meta(self):
+        """(num_features, x_dtype, has_weight) pinned by the first record;
+        x_dtype 0 = float32, 1 = bfloat16."""
+        F = ctypes.c_uint64()
+        dt, hw = ctypes.c_int32(), ctypes.c_int32()
+        _check(lib().dct_denserec_meta(self._h, ctypes.byref(F),
+                                       ctypes.byref(dt), ctypes.byref(hw)))
+        return F.value, dt.value, bool(hw.value)
+
+    def fill_packed(self, x: np.ndarray, aux: np.ndarray,
+                    nrows: np.ndarray) -> int:
+        """Fused shard-major fill (dense_rec.h FillPacked): ``x`` is
+        [rows, F] float32 or uint16 bf16 bits (the file's values converted
+        to it); label/weight/nrows go into ``aux`` [D, 3, R] int32.
+        Returns the true row count (0 = end)."""
+        if x.dtype == np.float32:
+            out_dtype = 0
+        elif x.dtype == BF16_STORAGE:
+            out_dtype = 1
+        else:
+            raise DMLCError(f"dense fill dtype must be float32 or bf16 "
+                            f"bits (uint16), got {x.dtype}")
+        F = x.shape[-1]
+        D = self._num_shards
+        R = self._batch_rows // D
+        ka = aux.shape[1]
+        take = ctypes.c_uint64()
+        ptr = NativeBatcher._ptr
+        _check(lib().dct_denserec_fill_packed(
+            self._h, ptr(x, x.dtype, self._batch_rows * F), out_dtype, F,
+            ptr(aux, np.int32, D * ka * R), ka, ptr(nrows, np.int32, D),
+            ctypes.byref(take)))
+        return int(take.value)
+
+    def before_first(self) -> None:
+        """Restart from the first record (new epoch)."""
+        _check(lib().dct_denserec_before_first(self._h))
+
+    def set_epoch(self, epoch: int) -> bool:
+        """Pin the shuffle permutation the next before_first() samples
+        (the dense-rec split does not shuffle: always False)."""
+        supported = ctypes.c_int32()
+        _check(lib().dct_denserec_set_epoch(self._h, epoch,
+                                            ctypes.byref(supported)))
+        return bool(supported.value)
+
+    def bytes_read(self) -> int:
+        """Record bytes consumed from the source so far."""
+        out = ctypes.c_size_t()
+        _check(lib().dct_denserec_bytes_read(self._h, ctypes.byref(out)))
+        return out.value
+
+
+class NativeRecordIOWriter(_Handle):
+    """RecordIO writer (reference RecordIOWriter, recordio.h:38)."""
+
+    _FREE = "dct_recordio_writer_free"
+
+    def __init__(self, uri: str):
+        self._h = ctypes.c_void_p()
+        _check(lib().dct_recordio_writer_create(uri.encode(),
+                                                ctypes.byref(self._h)))
+
+    def write_record(self, data: bytes) -> None:
+        """Append one record (< 2^29 bytes; embedded aligned magics are
+        escaped)."""
+        _check(lib().dct_recordio_write(self._h, data, len(data)))
+
+
+class NativeRecordIOReader(_Handle):
+    """RecordIO reader (reference RecordIOReader, recordio.h:119)."""
+
+    _FREE = "dct_recordio_reader_free"
+
+    def __init__(self, uri: str):
+        self._h = ctypes.c_void_p()
+        _check(lib().dct_recordio_reader_create(uri.encode(),
+                                                ctypes.byref(self._h)))
+
+    def next_record(self) -> Optional[bytes]:
+        """Next record payload, or None at end of stream."""
+        data = ctypes.c_void_p()
+        size = ctypes.c_size_t()
+        has = ctypes.c_int()
+        _check(lib().dct_recordio_read(self._h, ctypes.byref(data),
+                                       ctypes.byref(size), ctypes.byref(has)))
+        if not has.value:
+            return None
+        return ctypes.string_at(data, size.value) if size.value else b""
+
+    def __iter__(self) -> Iterator[bytes]:
+        while True:
+            rec = self.next_record()
+            if rec is None:
+                return
+            yield rec
+
+
+def bf16_bits(src: np.ndarray) -> np.ndarray:
+    """bfloat16 bits (uint16, same shape) of float32 ``src``, rounded to
+    nearest even by the native core's conversion (cpp/src/bf16.h), the one
+    the batch fills use."""
+    src = np.ascontiguousarray(src, np.float32)
+    out = np.empty(src.shape, BF16_STORAGE)
+    if src.size:
+        _check(lib().dct_bf16_convert(
+            ctypes.c_void_p(src.ctypes.data),
+            ctypes.c_void_p(out.ctypes.data), src.size))
+    return out
 
 
 class NativeStream:

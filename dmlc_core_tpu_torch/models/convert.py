@@ -2,7 +2,8 @@
 
 The reference's parameters are passed as numpy arrays (``np.asarray`` of
 each leaf), so this module needs nothing of JAX; the way back gives the
-``{"w", "b"}`` dict that ``serving.model.save_model`` takes.
+``{"w", "b"}`` / ``{"b", "w", "v"}`` dict that ``serving.model.save_model``
+takes and that the reference's parameter types are built from.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from dmlc_core_tpu_torch.models.fm import FMParams
 from dmlc_core_tpu_torch.models.linear import LinearParams
 
 __all__ = ["linear_params_from_numpy", "linear_params_to_numpy",
-           "fm_params_from_numpy"]
+           "fm_params_from_numpy", "fm_params_to_numpy"]
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -45,3 +46,10 @@ def fm_params_from_numpy(params: Mapping[str, np.ndarray],
     dev = resolve_device(device)
     return FMParams(b=_f32(params["b"], dev), w=_f32(params["w"], dev),
                     v=_f32(params["v"], dev))
+
+
+def fm_params_to_numpy(params: FMParams) -> Dict[str, np.ndarray]:
+    """``{"b": [], "w": [F], "v": [F, K]}`` float32 numpy arrays on the
+    host."""
+    return {name: getattr(params, name).detach().cpu().numpy()
+            for name in FMParams._fields}

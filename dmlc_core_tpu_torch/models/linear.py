@@ -1,7 +1,7 @@
 """Sparse linear learner (port of ``models/linear.py``, one device).
 
-Logistic or squared loss over PaddedBatch/DenseBatch shards; parameters
-and math stay float32. ``margin_path="dense"`` materializes the shard
+Logistic, squared or pairwise (RankNet over qid groups) loss over
+PaddedBatch/DenseBatch shards; parameters and math stay float32. ``margin_path="dense"`` materializes the shard
 through ``ops.sparse.csr_to_dense`` — with ``DCT_CSR_TO_DENSE=pallas``
 that is the hand-written Hopper kernel, once per step — and takes one
 matmul; the default ``"segment"`` path gathers and segment-sums.
@@ -13,10 +13,11 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from dmlc_core_tpu_torch.base import DMLCError, resolve_device
+from dmlc_core_tpu_torch.base import resolve_device
 from dmlc_core_tpu_torch.device.device_iter import unpack_tree
 from dmlc_core_tpu_torch.device.sharding import refuse_mesh
 from dmlc_core_tpu_torch.models._dp import DataParallelModel
+from dmlc_core_tpu_torch.ops.ranking import pairwise_logistic_loss
 from dmlc_core_tpu_torch.ops.sparse import csr_matvec, csr_to_dense
 
 __all__ = ["LinearParams", "LinearLearner", "objective_loss"]
@@ -30,7 +31,10 @@ class LinearParams(NamedTuple):
 def objective_loss(margin: torch.Tensor, shard: Dict[str, torch.Tensor],
                    num_rows: int, objective: str
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(weighted loss sum, weight sum) of a shard given its margins."""
+    """(weighted loss sum, weight sum) of a shard given its margins: the
+    objectives shared by every margin model (linear here, the
+    factorization machine in models/fm.py). For ``pairwise`` the second
+    value is the summed pair weight."""
     y = shard["label"]
     wgt = shard["weight"]  # 0 on padding rows
     if objective == "logistic":
@@ -46,8 +50,19 @@ def objective_loss(margin: torch.Tensor, shard: Dict[str, torch.Tensor],
     elif objective == "squared":
         per_row = 0.5 * (margin - y) ** 2
     elif objective == "pairwise":
-        raise DMLCError("objective='pairwise' is not ported yet (ROADMAP.md "
-                        "queue 1, 'FM + ranking')")
+        if "qid" not in shard:
+            raise ValueError(
+                "objective='pairwise' needs qid-grouped data (libsvm "
+                "`qid:` column; carried to the device as the qid plane)")
+        # the pair mining is an [R, R] broadcast: refuse a shard whose
+        # temporaries would not fit (the reference's ceiling)
+        if num_rows > 8192:
+            raise ValueError(
+                f"objective='pairwise' mines pairs in [R, R] space; "
+                f"R={num_rows} rows per shard would materialize "
+                f"{num_rows * num_rows * 4 / 1e9:.1f} GB temporaries. Use "
+                f"batch_rows <= 8192 * num_shards for ranking workloads")
+        return pairwise_logistic_loss(margin, y, shard["qid"], wgt)
     else:
         raise ValueError(f"unknown objective {objective!r}")
     return torch.sum(per_row * wgt), torch.sum(wgt)
@@ -65,7 +80,9 @@ def _shard_loss(params: LinearParams, shard: Dict[str, torch.Tensor],
     elif margin_path == "dense":
         dense = csr_to_dense(shard["row"], shard["col"], shard["val"],
                              num_rows, params.w.shape[0])
-        margin = dense @ params.w + params.b
+        # bf16 values give a bf16 dense shard; jnp promotes it to f32 in
+        # the product, torch needs the cast
+        margin = dense.float() @ params.w + params.b
     else:
         margin = csr_matvec(shard["row"], shard["col"], shard["val"],
                             params.w, num_rows) + params.b

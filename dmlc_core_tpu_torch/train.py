@@ -1,10 +1,13 @@
-"""Training CLI: data URI -> device batches -> linear learner ->
-checkpoint/resume.
+"""Training CLI: data URI -> device batches -> linear learner or
+factorization machine -> checkpoint/resume.
 
 The port of ``examples/train.py``, with the same arguments and the same
 ``epoch N: mean loss ... over ... batches`` lines, plus ``--device``::
 
     python -m dmlc_core_tpu_torch.train data.libsvm --epochs 3
+    python -m dmlc_core_tpu_torch.train ranking.libsvm --objective pairwise
+    python -m dmlc_core_tpu_torch.train data.libfm --model fm --fm-rank 8
+    python -m dmlc_core_tpu_torch.train data.crec --num-features 28
     python -m dmlc_core_tpu_torch.train data.libsvm --checkpoint ckpt.bin
     python -m dmlc_core_tpu_torch.train data.libsvm --resume ckpt.bin
     python -m dmlc_core_tpu_torch.train data.libsvm --device cpu
@@ -14,10 +17,13 @@ CUDA it raises). Each epoch ends with a checkpoint of the parameters and
 the iterator's position; ``--resume`` continues from the checkpoint's
 epoch, and from inside an epoch when the checkpoint's ``extra`` holds a
 mid-epoch position (``DeviceRowBlockIter.state()``). Dense batches carry
-bfloat16 values, as in the reference.
+bfloat16 values, as in the reference. ``.crec``, ``.drec`` and ``.rec``
+URIs take their binary lanes by suffix; the feature count of a ``.crec``
+or ``.drec`` file is given with ``--num-features`` (the discovery pass
+parses text and ``.rec`` only, as the reference's does).
 
-``--model fm``, ``--objective pairwise`` and a multi-process world raise
-and name the ROADMAP.md queue item that ports them.
+A multi-process world raises and names the ROADMAP.md queue item that
+ports it.
 """
 
 from __future__ import annotations
@@ -32,11 +38,11 @@ from dmlc_core_tpu_torch.base import DMLCError, resolve_device
 from dmlc_core_tpu_torch.device.device_iter import DeviceRowBlockIter
 from dmlc_core_tpu_torch.device.sharding import process_part
 from dmlc_core_tpu_torch.io.native import NativeParser
+from dmlc_core_tpu_torch.models.fm import FMLearner
 from dmlc_core_tpu_torch.models.linear import LinearLearner
 from dmlc_core_tpu_torch.utils.checkpoint import restore_checkpoint, \
     save_checkpoint
 
-_FM_RANKING = "ROADMAP.md queue 1, 'FM + ranking'"
 _MULTI_PROCESS = ("ROADMAP.md queue 1, 'Multi-process data parallelism via "
                   "torch.distributed'")
 # mid-epoch resume keys of DeviceRowBlockIter.state() that are integers
@@ -45,12 +51,7 @@ _INT_STATE_KEYS = ("batches_consumed", "batch_rows", "part", "npart",
 _STATE_KEYS = _INT_STATE_KEYS + ("uri", "fmt")
 
 
-def _refuse_unported(args) -> None:
-    if args.model == "fm":
-        raise DMLCError(f"--model fm is not ported yet ({_FM_RANKING})")
-    if args.objective == "pairwise":
-        raise DMLCError(
-            f"--objective pairwise is not ported yet ({_FM_RANKING})")
+def _refuse_unported() -> None:
     if os.environ.get("JAX_COORDINATOR_ADDRESS") or \
             os.environ.get("DMLC_COORDINATOR_ADDRESS"):
         raise DMLCError(f"a multi-process world is not ported yet "
@@ -60,13 +61,15 @@ def _refuse_unported(args) -> None:
 def main(argv=None) -> int:
     """CLI entry; returns the process exit code."""
     ap = argparse.ArgumentParser(
-        description="train a linear model on the port's device path")
-    ap.add_argument("uri", help="libsvm/csv/libfm data URI "
+        description="train a linear model or a factorization machine on "
+                    "the port's device path")
+    ap.add_argument("uri", help="libsvm/csv/libfm/rec/crec/drec data URI "
                                "(file://, s3://, hdfs://, azure://)")
     ap.add_argument("--num-features", type=int, default=0,
                     help="0 = discover from the first epoch's max index")
     ap.add_argument("--model", default="linear", choices=("linear", "fm"),
-                    help="linear learner (fm is not ported yet)")
+                    help="linear learner or second-order factorization "
+                         "machine")
     ap.add_argument("--fm-rank", type=int, default=8,
                     help="FM interaction-factor rank k")
     ap.add_argument("--objective", default="logistic",
@@ -83,7 +86,7 @@ def main(argv=None) -> int:
                          "without CUDA)")
     args = ap.parse_args(argv)
 
-    _refuse_unported(args)
+    _refuse_unported()
     device = resolve_device(args.device)
     part, npart = process_part()
     if npart > 1:
@@ -99,9 +102,15 @@ def main(argv=None) -> int:
                 mx = max(mx, int(b.max_index))
         args.num_features = mx + 1
 
-    learner = LinearLearner(num_features=args.num_features,
+    if args.model == "fm":
+        learner = FMLearner(num_features=args.num_features, k=args.fm_rank,
                             objective=args.objective,
                             learning_rate=args.learning_rate, device=device)
+    else:
+        learner = LinearLearner(num_features=args.num_features,
+                                objective=args.objective,
+                                learning_rate=args.learning_rate,
+                                device=device)
     params = learner.init()
     start_epoch = 0
     data_state = None

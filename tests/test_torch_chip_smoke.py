@@ -1,8 +1,9 @@
-"""chip_smoke.py's kernel cases, bound and summary checks, on the CPU.
+"""chip_smoke.py's kernel cases, bound, data writers and phases, on the CPU.
 
 The script itself needs a CUDA card; what it holds the kernel to (the plain
 version on its cases, the memory-traffic bound) is checked here, where the
-port's wrapper takes the plain version for CPU tensors.
+port's wrapper takes the plain version for CPU tensors, and every phase
+runs here end to end at a small size (rows cut, widths kept).
 """
 
 import numpy as np
@@ -66,7 +67,8 @@ def test_serve_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        _, params = cs.train_phase(str(tmp_path), device="cpu", rows=4096,
+        data = cs.write_higgs_files(str(tmp_path), rows=4096)
+        _, params = cs.train_phase(data["text"], device="cpu", rows=4096,
                                    batch_rows=1024)
         out = cs.serve_phase(str(tmp_path), params, device="cpu",
                              requests=8, warm_s=0.5, loop_s=1.0,
@@ -99,3 +101,108 @@ def test_lane_payloads_match_the_reference_generator():
     fn, _ = loadrig.score_payload_fn(
         "libsvm:rows=2,rows_max=8,features=16384,nnz=16,seed=7")
     assert cs.lane_payloads(20) == [fn() for _ in range(20)]
+
+
+@pytest.fixture
+def one_thread(monkeypatch):
+    monkeypatch.setenv("DCT_CSR_TO_DENSE", "xla")  # the phases set it
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_higgs_files_and_crec_kernel_case(tmp_path):
+    data = cs.write_higgs_files(str(tmp_path), rows=3000)
+    assert data["rows"] == 3000
+    assert all(data["bytes"][k] > 0 for k in ("text", "crec", "drec"))
+    name, row, col, val, R, F, tol, _ = cs.crec_kernel_case(data["crec"],
+                                                           batch_rows=1024)
+    assert (name, R, F, tol) == ("crec_batch_1024x28", 1024, 28, "exact")
+    # every row holds the 28 columns; the rest of the bucket is padding
+    assert len(row) >= 1024 * 28 and (row[1024 * 28:] == R).all()
+    r, c, v = (torch.from_numpy(a) for a in (row, col, val))
+    got = hk.csr_to_dense_kernel(r, c, v, R, F)
+    want = np.zeros((R, F), np.float32)
+    keep = row < R
+    want[row[keep], col[keep]] = val[keep]
+    assert np.array_equal(got.numpy(), want)
+    # the same rows as the text file's first batch
+    from dmlc_core_tpu_torch.io.native import NativeParser
+    with NativeParser(data["text"]) as p:
+        first = np.concatenate([b.value.copy() for b in p])[:1024 * 28]
+    assert np.array_equal(val[:1024 * 28], first)
+
+
+def test_criteo_writer_shape(tmp_path):
+    path = str(tmp_path / "c.libfm")
+    cs.write_criteo_like(path, 4000, seed=3)
+    from dmlc_core_tpu_torch.io.native import NativeParser
+    with NativeParser(path + "?format=libfm") as p:
+        # a block's arrays are views, valid until the parser's next call
+        blocks = [[a.copy() for a in (b.offset, b.field, b.index, b.value,
+                                      b.label)] for b in p]
+    lens, fields, ids, vals, labels = (
+        np.concatenate([np.diff(b[0]) for b in blocks]),
+        *(np.concatenate([b[i] for b in blocks]) for i in range(1, 5)))
+    assert len(lens) == 4000 and (lens == 39).all()
+    assert np.array_equal(fields, np.tile(np.arange(39), 4000))
+    assert ids.max() < cs.CRITEO_FEATURES
+    assert (ids.reshape(4000, 39)[:, :13] == np.arange(13)).all()
+    assert (ids.reshape(4000, 39)[:, 13:] >= 13).all()
+    assert (vals.reshape(4000, 39)[:, 13:] == 1).all()
+    assert (vals.reshape(4000, 39)[:, :13] > 0).all()
+    want = cs.criteo_like(4000, seed=3)
+    assert np.array_equal(labels, want[0].astype(np.float32))
+    np.testing.assert_allclose(vals.reshape(4000, 39), want[2], rtol=1e-6)
+    assert 0.1 < labels.mean() < 0.4  # Criteo's click rate is about 1/4
+
+
+def test_mslr_writer_shape(tmp_path):
+    path = str(tmp_path / "m.libsvm")
+    queries = cs.write_mslr_like(path, 6000, seed=5)
+    from dmlc_core_tpu_torch.io.native import NativeParser
+    with NativeParser(path) as p:
+        blocks = [[a.copy() for a in (b.offset, b.qid, b.label, b.index)]
+                  for b in p]
+    lens, qid, labels, ids = (
+        np.concatenate([np.diff(b[0]) for b in blocks]),
+        *(np.concatenate([b[i] for b in blocks]) for i in range(1, 4)))
+    assert len(lens) == 6000 and (lens == cs.MSLR_FEATURES).all()
+    assert ids.max() == cs.MSLR_FEATURES - 1
+    assert int(qid.max()) + 1 == queries and 6000 / queries > 80
+    assert set(np.unique(labels)) == {0, 1, 2, 3, 4}
+    share = np.bincount(labels.astype(int)) / 6000
+    np.testing.assert_allclose(share, [0.52, 0.32, 0.13, 0.02, 0.01],
+                               atol=0.02)
+
+
+def test_new_phases_rehearsal_on_cpu(tmp_path, one_thread):
+    """lanes, fm and rank end to end on the CPU at a small size: every
+    lane's equality gates, the FM's CPU comparison, dense margin and
+    serving check, the ranking epoch and its two refusals."""
+    wd = str(tmp_path)
+    data = cs.write_higgs_files(wd, rows=4096)
+    run, params = cs.train_phase(data["text"], device="cpu", rows=4096,
+                                 batch_rows=1024)
+    lanes = cs.lanes_phase(data, {"losses": run["losses"],
+                                  "w": params.w.numpy(),
+                                  "b": float(params.b)},
+                           device="cpu", batch_rows=1024)
+    assert set(lanes["lanes"]) == {"text_dense_bf16", "recd", "text_csr",
+                                   "index64", "crec",
+                                   "text_csr_bf16_values"}
+    assert lanes["lanes"]["recd"]["losses"] == \
+        lanes["lanes"]["text_dense_bf16"]["losses"]
+    assert lanes["launches"] == {"csr_to_dense": 0}  # CPU: plain version
+    assert 0 < lanes["gaps"]["bf16_values_vs_f32_loss_max_rel"] < 1e-3
+    fm = cs.fm_phase(wd, data, device="cpu", rows=2048, batch_rows=1024)
+    assert fm["features"] == 1 << 20 and fm["fields"] == 39
+    assert fm["nnz_bucket"] == 65536  # 1024 x 39 nonzeros, next power of 2
+    assert fm["losses"][-1] < fm["losses"][0]
+    assert fm["serve"]["max_abs_err_vs_f64"] <= 1e-5
+    rank = cs.rank_phase(wd, data, device="cpu", rows=2048, batch_rows=512)
+    assert rank["features"] == 136 and rank["steps"] == 4
+    assert rank["losses"][0] == pytest.approx(np.log(2.0))
+    assert rank["losses"][-1] < rank["losses"][0]
+    assert set(rank["refusals"]) == {"oversized", "no_qid"}

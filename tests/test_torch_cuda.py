@@ -272,3 +272,86 @@ def test_scoring_model_on_cuda_matches_cpu(cuda_device, tmp_path, kind):
     want = ScoringModel.load(uri, device="cpu").scores(row, col, val, R)
     assert got.shape == (R,) and np.all(np.isfinite(got))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+def lane_uri(tmp_path, lane):
+    """(uri, iterator kwargs) of one DeviceRowBlockIter lane over the
+    seeded libsvm file."""
+    from dmlc_core_tpu_torch.io import convert
+    path = write_libsvm(tmp_path / "l.libsvm", seed=14)
+    if lane == "crec":
+        uri = str(tmp_path / "l.crec")
+        convert.rows_to_csr_recordio(path, uri)
+        return uri, {}
+    if lane == "recd":
+        uri = str(tmp_path / "l.drec")
+        convert.rows_to_dense_recordio(path, uri)
+        return uri, {"dense_dtype": "bf16"}
+    if lane == "index64":
+        return path, {"index64": True, "layout": "csr"}
+    return path, {"layout": "csr", "csr_val_dtype": "bf16"}
+
+
+@pytest.mark.parametrize("lane", ["bf16_values", "crec", "recd", "index64"])
+def test_lane_batches_on_cuda_equal_cpu(cuda_device, tmp_path, lane):
+    uri, kw = lane_uri(tmp_path, lane)
+    out = {}
+    for device in ("cpu", "cuda"):
+        with di.DeviceRowBlockIter(uri, batch_rows=128, min_nnz_bucket=64,
+                                   device=device, **kw) as it:
+            out[device] = [{k: t.cpu().clone() for k, t in b.tree().items()}
+                           for b in it]
+    assert len(out["cuda"]) == len(out["cpu"]) == 6
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert set(g) == set(w)
+        for k in w:
+            assert g[k].dtype == w[k].dtype and torch.equal(g[k], w[k]), k
+    if lane == "bf16_values":
+        assert out["cuda"][0]["val"].dtype == torch.bfloat16
+
+
+def steps_on(device, uri, learner, params, layout, n=3):
+    """Losses and final parameters (numpy) of ``n`` steps on ``device``
+    from ``params``."""
+    params = type(params)(*(t.to(device) for t in params))
+    losses = []
+    with di.DeviceRowBlockIter(uri, batch_rows=128, layout=layout,
+                               min_nnz_bucket=1024, device=device) as it:
+        for batch, _ in zip(it, range(n)):
+            params, loss = learner(device).step(params, batch)
+            losses.append(float(loss))
+    return losses, [t.cpu().numpy() for t in params]
+
+
+@pytest.mark.parametrize("layout", ["csr", "dense"])
+def test_fm_steps_on_cuda_match_cpu(cuda_device, tmp_path, layout):
+    from dmlc_core_tpu_torch.models.fm import FMLearner
+    path = write_libsvm(tmp_path / "f.libsvm", seed=15)
+    init = FMLearner(9, k=4, init_scale=0.3, device="cpu").init(seed=2)
+
+    def learner(device):
+        return FMLearner(9, k=4, learning_rate=0.5, device=device)
+    want = steps_on("cpu", path, learner, init, layout)
+    got = steps_on("cuda", path, learner, init, layout)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for g, w in zip(got[1], want[1]):  # b, w, v
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7)
+
+
+def test_pairwise_steps_on_cuda_match_cpu(cuda_device, tmp_path):
+    rng = np.random.default_rng(16)
+    path = tmp_path / "r.libsvm"
+    with open(path, "w") as f:
+        for i in range(700):
+            feats = " ".join(f"{j}:{rng.normal():.4f}" for j in range(9))
+            f.write(f"{rng.integers(0, 5)} qid:{i // 30} {feats}\n")
+
+    def learner(device):
+        return LinearLearner(9, objective="pairwise", learning_rate=0.5,
+                             device=device)
+    init = learner("cpu").init()
+    want = steps_on("cpu", str(path), learner, init, "dense")
+    got = steps_on("cuda", str(path), learner, init, "dense")
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for g, w in zip(got[1], want[1]):  # w, b
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7)

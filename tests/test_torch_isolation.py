@@ -38,6 +38,10 @@ import dmlc_core_tpu_torch
 names = ["dmlc_core_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(dmlc_core_tpu_torch.__path__,
                                           "dmlc_core_tpu_torch.")]
+# the fourth slice's modules by name, so none can drop out unnoticed
+for mod in ("io.convert", "ops.ranking", "models.fm", "models.convert",
+            "device.device_iter", "train"):
+    assert "dmlc_core_tpu_torch." + mod in names, mod
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -54,7 +58,7 @@ def test_port_imports_without_jax_or_reference():
         capture_output=True, text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 31  # every module of the three slices
+    assert n >= 33  # every module of the four slices
 
 
 def test_port_sources_name_no_blocked_package():
@@ -85,6 +89,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from dmlc_core_tpu_torch.device.device_iter import DeviceRowBlockIter
     from dmlc_core_tpu_torch.models.convert import (fm_params_from_numpy,
                                                     linear_params_from_numpy)
+    from dmlc_core_tpu_torch.models.fm import FMLearner
     from dmlc_core_tpu_torch.models.linear import LinearLearner
     from dmlc_core_tpu_torch.serving import (ScoringModel, ScoringServer,
                                              save_model)
@@ -99,6 +104,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     with pytest.raises(DMLCError, match="no CUDA device"):
         LinearLearner(2)
     with pytest.raises(DMLCError, match="no CUDA device"):
+        FMLearner(2)
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        LinearLearner(2, objective="pairwise")
+    with pytest.raises(DMLCError, match="no CUDA device"):
         linear_params_from_numpy({"w": np.zeros(2), "b": 0.0})
     with pytest.raises(DMLCError, match="no CUDA device"):
         fm_params_from_numpy({"w": np.zeros(2), "b": 0.0,
@@ -111,6 +120,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         serve_cli.main(["--model-uri", art])
     with pytest.raises(DMLCError, match="no CUDA device"):
         train.main([str(p), "--epochs", "1"])
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        train.main([str(p), "--epochs", "1", "--model", "fm"])
     # an explicit device is honoured
     assert LinearLearner(2, device="cpu").init().w.device.type == "cpu"
     assert ScoringModel.load(art, device="cpu").device.type == "cpu"

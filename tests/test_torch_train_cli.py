@@ -131,8 +131,10 @@ def test_cli_mid_epoch_resume_matches_uninterrupted(data, tmp_path,
 
 
 @pytest.mark.parametrize("extra_args,env,match", [
-    (["--model", "fm"], {}, "FM \\+ ranking"),
-    (["--objective", "pairwise"], {}, "FM \\+ ranking"),
+    (["--model", "fm"], {"DMLC_TASK_ID": "1", "DMLC_NUM_WORKER": "2"},
+     "Multi-process data parallelism"),
+    (["--objective", "pairwise"], {"JAX_COORDINATOR_ADDRESS": "h:1"},
+     "Multi-process data parallelism"),
     ([], {"DMLC_TASK_ID": "0", "DMLC_NUM_WORKER": "2"},
      "Multi-process data parallelism"),
     ([], {"DMLC_COORDINATOR_ADDRESS": "localhost:1"},
@@ -144,3 +146,98 @@ def test_cli_refuses_unported_lanes(data, monkeypatch, extra_args, env,
         monkeypatch.setenv(k, v)
     with pytest.raises(DMLCError, match=match):
         cli.main([data, *extra_args, "--device", "cpu"])
+
+
+def _fm_start(tmp_path, features, k=4):
+    """A step-0 checkpoint of FM parameters that both CLIs resume from:
+    torch's and JAX's random streams differ, so the FM runs start from
+    the same numpy parameters instead of each package's init."""
+    from dmlc_core_tpu_torch.models.convert import fm_params_from_numpy
+    rng = np.random.default_rng(6)
+    p = {"b": np.float32(0.0), "w": np.zeros(features, np.float32),
+         "v": rng.normal(scale=0.1, size=(features, k)).astype(np.float32)}
+    ck = str(tmp_path / "fm0.ckpt")
+    save_checkpoint(ck, fm_params_from_numpy(p, "cpu"), step=0)
+    return ["--model", "fm", "--fm-rank", str(k), "--resume", ck]
+
+
+def _ranking_file(tmp_path):
+    rng = np.random.default_rng(3)
+    path = tmp_path / "rank.libsvm"
+    w_true = rng.normal(size=5)
+    with open(path, "w") as f:
+        for q in range(100):
+            x = rng.normal(size=(12, 5))
+            rel = np.argsort(np.argsort(x @ w_true)) // 3  # labels 0..3
+            for d in range(12):
+                feats = " ".join(f"{j}:{x[d, j]:.4f}" for j in range(5))
+                f.write(f"{rel[d]} qid:{q} {feats}\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("case", ["fm", "pairwise", "fm_pairwise", "crec",
+                                  "drec"])
+def test_cli_lanes_and_models_match_reference(data, tmp_path, case):
+    """``--model fm``, ``--objective pairwise`` and ``.crec``/``.drec``
+    URIs give the reference CLI's epoch losses at rtol 1e-5 (the
+    reference on one JAX device)."""
+    from dmlc_core_tpu_torch.io import convert
+    uri, extra = data, []
+    if case in ("fm", "fm_pairwise"):
+        extra = _fm_start(tmp_path, 5)
+    if case in ("pairwise", "fm_pairwise"):
+        uri = _ranking_file(tmp_path)
+        extra += ["--objective", "pairwise"]
+    if case == "crec":
+        uri = str(tmp_path / "d.crec")
+        convert.rows_to_csr_recordio(data, uri)
+        extra = ["--num-features", "5"]
+    if case == "drec":
+        uri = str(tmp_path / "d.drec")
+        convert.rows_to_dense_recordio(data, uri)
+        extra = ["--num-features", "5"]
+    args = [uri, "--epochs", "2", *COMMON, *extra]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    ours = _run([sys.executable, "-m", "dmlc_core_tpu_torch.train", *args,
+                 "--device", "cpu"], env, str(tmp_path))
+    ref = _run([sys.executable, os.path.join(REPO, "examples", "train.py"),
+                *args], dict(env, JAX_PLATFORMS="cpu", XLA_FLAGS=""),
+               str(tmp_path))
+    assert len(_losses(ours)) == 2, ours
+    assert [ln.split(" mean")[0] for ln in ours.splitlines()] == \
+        [ln.split(" mean")[0] for ln in ref.splitlines() if "mean" in ln]
+    np.testing.assert_allclose(_losses(ours), _losses(ref), rtol=1e-5)
+
+
+def test_cli_fm_mid_epoch_resume_matches_uninterrupted(data, tmp_path,
+                                                       capsys):
+    """An FM checkpoint taken after k batches of epoch 0 resumes inside
+    the epoch: the rest of epoch 0 and epoch 1 equal the run without the
+    interruption."""
+    from dmlc_core_tpu_torch.models.fm import FMLearner
+    k = 3
+    learner = FMLearner(5, k=4, learning_rate=0.1, device="cpu")
+    params = learner.init()
+    losses = []
+    with DeviceRowBlockIter(data, batch_rows=256, dense_dtype="bf16",
+                            device="cpu") as it:
+        for batch in it:
+            params, loss = learner.step(params, batch)
+            losses.append(float(loss))
+            if len(losses) == k:
+                ck = str(tmp_path / "fm_mid.ckpt")
+                save_checkpoint(ck, params, step=0,
+                                extra={str(a): str(b)
+                                       for a, b in it.state().items()})
+    fm = ["--model", "fm", "--fm-rank", "4"]
+    cli.main([data, "--epochs", "2", *COMMON, *fm, "--device", "cpu"])
+    whole = capsys.readouterr().out.splitlines()
+    assert _losses(whole[0]) == pytest.approx([np.mean(losses)], rel=1e-6)
+    cli.main([data, "--epochs", "2", *COMMON, *fm, "--resume", ck,
+              "--device", "cpu"])
+    resumed = capsys.readouterr().out.splitlines()
+    assert resumed[0].startswith("epoch 0:") and "over 2 batches" in \
+        resumed[0]
+    assert _losses(resumed[0]) == pytest.approx([np.mean(losses[k:])],
+                                                rel=1e-6)
+    assert resumed[1] == whole[1]
