@@ -75,6 +75,25 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  rows against the CPU run at rtol 1e-5, and the
                  learner's refusals of R = 16,384 and of data without
                  qids.
+9. ``dp``      — data-parallel worlds of real processes under the launcher
+                 env protocol, each with its own timeout (this script in
+                 ``dp-worker`` mode, or the training CLI): (a) the ``train``
+                 phase's run in an NCCL world of one rank, bit for bit
+                 (else the gap, at most rtol 1e-5); (b) two ranks sharing
+                 the card over gloo on the same file, 32,768 rows a rank a
+                 step through the kernel, against one process stepping on
+                 the union of their batches at rtol 1e-5 (atol 1e-7 on
+                 weights), replicas bit-identical, a launch a step on each
+                 rank; the Criteo-shaped FM for 2 steps in the same world
+                 against its union run at the ``fm`` phase's tolerances;
+                 (c) ``python -m dmlc_core_tpu_torch.train`` in a 2-rank
+                 world: a job checkpoint each epoch (parts and marker
+                 checked), then ``--resume`` from the step committed
+                 after epoch 1, equal to the uninterrupted epoch-1 line at
+                 rtol 1e-5. Per world: step median, rows/s, bytes reduced
+                 a step, a bare all_reduce of that buffer (median of 20,
+                 host clock) and the backend. One card: the 2-rank worlds
+                 measure the code path, not NCCL between cards.
 
 Each configuration keeps its published widths; row counts are cut, and
 each phase's JSON names the cut (``reduced``).
@@ -1527,7 +1546,446 @@ def rank_phase(workdir: str, data: dict, device: str = "cuda",
     return out
 
 
+# -- phase 9: data-parallel worlds -------------------------------------------
+# The machine has one card. The NCCL world holds one rank; the worlds of two
+# ranks share cuda:0 over gloo (NCCL refuses two ranks on one device), so
+# their collective times measure the code path on one card, not NCCL's
+# bandwidth between cards.
+DP_RANKS = 2
+DP_TIMEOUT_S = 240     # each world's own limit
+DP_BARE_RUNS = 20
+DP_FM_STEPS = 2
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_world(argv_of_rank, size: int, label: str, env=None,
+                timeout: float = DP_TIMEOUT_S) -> "list[str]":
+    """Start ``size`` ranks at once under the launcher env protocol on a
+    free localhost port; wait at most ``timeout`` seconds for all. A rank
+    that fails, or a world that outlives its timeout, fails the phase with
+    every rank killed. Returns the ranks' stdouts."""
+    port = free_port()
+    procs = []
+    for r in range(size):
+        penv = dict(os.environ, DCT_CSR_TO_DENSE="pallas",
+                    DMLC_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                    DMLC_NUM_WORKER=str(size), DMLC_TASK_ID=str(r),
+                    DMLC_COLLECTIVE_TIMEOUT_MS=str(int(timeout * 1000)),
+                    PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        penv.update(env or {})
+        procs.append(subprocess.Popen(
+            argv_of_rank(r), env=penv, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 0.1)))
+    except subprocess.TimeoutExpired:
+        outs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    require(outs is not None, f"{label}: world outlived its timeout",
+            timeout_s=timeout)
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"{label}: rank {r} failed",
+                rc=p.returncode, stderr=err[-3000:])
+    return [o for o, _ in outs]
+
+
+def part_rows(uri: str, npart: int = DP_RANKS) -> "list[int]":
+    """Rows of each part of ``uri`` as the ranks' parsers split it."""
+    counts = []
+    for part in range(npart):
+        n = 0
+        with NativeParser(uri, part=part, npart=npart) as parser:
+            for b in parser:
+                n += b.num_rows
+        counts.append(n)
+    return counts
+
+
+def write_unions(uri: str, prefix: str, local_rows: int,
+                 max_steps: "int | None" = None) -> "tuple[list, list]":
+    """The batches a 2-rank world steps on, one file a step: part 0's
+    batch of ``local_rows`` rows, then part 1's (a part that ran out adds
+    none). Returns the parts' row counts and the files (the world's
+    first ``max_steps`` steps), named ``prefix`` + step + ``uri``'s
+    query."""
+    counts = part_rows(uri)
+    steps = max(-(-c // local_rows) for c in counts)
+    if max_steps is not None:
+        steps = min(steps, max_steps)
+    path, _, query = uri.partition("?")
+    raw = np.fromfile(path, np.uint8)
+    ends = np.flatnonzero(raw == ord("\n")) + 1
+    starts = np.concatenate([[0], ends[:-1]])
+    require(len(ends) == sum(counts), "parts cover the file",
+            lines=len(ends), counts=counts)
+    first = [0, counts[0]]
+    files = []
+    for k in range(steps):
+        pieces = []
+        for p in range(DP_RANKS):
+            lo = k * local_rows
+            hi = min(lo + local_rows, counts[p])
+            if lo < hi:
+                pieces.append(raw[starts[first[p] + lo]:
+                                  ends[first[p] + hi - 1]])
+        dst = f"{prefix}{k}"
+        np.concatenate(pieces).tofile(dst)
+        files.append(dst + ("?" + query if query else ""))
+    return counts, files
+
+
+def union_run(files: list, learner, params, batch_rows: int,
+              device: str) -> "tuple[object, list]":
+    """One process stepping once on each union file: (params, losses)."""
+    losses = []
+    for uri in files:
+        with device_iter.DeviceRowBlockIter(uri, batch_rows=batch_rows,
+                                            layout="csr",
+                                            device=device) as it:
+            (batch,) = list(it)
+            params, loss = learner.step(params, batch)
+        losses.append(float(loss))
+    return params, losses
+
+
+def dp_task(task: dict, mesh, backend: str) -> dict:
+    """One task of a world's rank: a warm-up step on a learner of its own,
+    then the timed run (kernel launches counted on it alone), a bare
+    all_reduce of the step's buffer, and the all-gathered check that every
+    rank holds the same parameter bytes."""
+    from dmlc_core_tpu_torch.parallel import distributed
+    fm = task["model"] == "fm"
+    features = task["features"]
+
+    def learner():
+        if fm:
+            return FMLearner(features, k=FM_RANK, mesh=mesh)
+        return LinearLearner(features, margin_path="dense", mesh=mesh)
+
+    def start(lrn):
+        if fm:  # the fm phase's start, drawn on the CPU from seed 0
+            init = FMLearner(features, k=FM_RANK, device="cpu").init(seed=0)
+            return FMParams(*(t.to(mesh.device) for t in init))
+        return lrn.init()
+
+    def batches():
+        return device_iter.DeviceRowBlockIter(
+            task["uri"], part=mesh.rank, npart=mesh.size,
+            batch_rows=task["batch_rows"], mesh=mesh, layout="csr")
+
+    warm = learner()
+    with batches() as it:
+        warm.step(start(warm), next(iter(it)))
+    sync(mesh.device)
+    hk.reset_launch_counts()
+    lrn = learner()
+    params = start(lrn)
+    losses, step_s, rows = [], [], 0
+    t0 = time.perf_counter()
+    with batches() as it:
+        stream = iter(it)
+        while len(losses) != task.get("max_steps"):
+            batch = next(stream, None)
+            ts = time.perf_counter()
+            stepped, loss = lrn.step(params, batch)
+            if lrn.last_active == 0:  # no rank had a batch left
+                break
+            params = stepped
+            losses.append(float(loss))  # synchronizes the step
+            step_s.append(time.perf_counter() - ts)
+            rows += 0 if batch is None else batch.total_rows
+        local_batches = it.batches_consumed
+    seconds = time.perf_counter() - t0
+    launches = hk.csr_to_dense_kernel.launches
+
+    numel = 3 + sum(p.numel() for p in params)  # loss, wsum, active, grads
+    comm = mesh.device if backend == "nccl" else torch.device("cpu")
+    buf = torch.zeros(numel, dtype=torch.float32, device=comm)
+    bare = []
+    for _ in range(DP_BARE_RUNS + 1):  # the first run warms up
+        distributed.barrier()
+        sync(mesh.device)
+        tb = time.perf_counter()
+        torch.distributed.all_reduce(buf)
+        sync(mesh.device)
+        bare.append(time.perf_counter() - tb)
+    blobs = distributed.allgather_bytes(b"".join(
+        p.detach().cpu().numpy().tobytes() for p in params))
+    out = {"steps": len(losses), "local_batches": local_batches,
+           "rows": rows, "losses": losses, "step_s": step_s,
+           "step_s_median": statistics.median(step_s), "epoch_s": seconds,
+           "launches": launches, "bytes_reduced_per_step": 4 * numel,
+           "bare_allreduce_ms": 1e3 * statistics.median(bare[1:]),
+           "replicas_identical": all(b == blobs[0] for b in blobs)}
+    if fm:
+        if mesh.rank == 0:
+            np.savez(task["save"], **fm_params_to_numpy(params))
+    else:
+        out.update(w=params.w.cpu().numpy().tobytes().hex(),
+                   b=float(params.b))
+    return out
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dp_worker(spec_path: str, out_path: str) -> int:
+    """A rank of a ``dp`` world (``chip_smoke.py dp-worker SPEC OUT``):
+    joins the world from the env protocol, runs the spec's tasks, writes
+    its results as JSON."""
+    from dmlc_core_tpu_torch.device.sharding import data_mesh
+    from dmlc_core_tpu_torch.parallel import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    distributed.init_from_env(device=spec["device"],
+                              backend=spec["backend"])
+    try:
+        mesh = data_mesh(spec["device"])
+        backend = torch.distributed.get_backend()
+        out = {"rank": mesh.rank, "size": mesh.size, "backend": backend,
+               "device": str(mesh.device)}
+        for task in spec["tasks"]:
+            out[task["name"]] = dp_task(task, mesh, backend)
+    finally:
+        distributed.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_dp_world(workdir: str, name: str, size: int, backend: str,
+                 device: str, tasks: list) -> "tuple[list, float]":
+    """A world of ``size`` ``dp-worker`` ranks; their results and the
+    world's wall-clock seconds, process start-up included."""
+    spec = os.path.join(workdir, f"dp_{name}.json")
+    with open(spec, "w") as f:
+        json.dump({"backend": backend, "device": device, "tasks": tasks}, f)
+    outs = [os.path.join(workdir, f"dp_{name}_rank{r}.out.json")
+            for r in range(size)]
+    script = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    spawn_world(lambda r: [sys.executable, script, "dp-worker", spec,
+                           outs[r]], size, f"dp world {name}")
+    seconds = time.perf_counter() - t0
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results, seconds
+
+
+def world_report(results: list, task: str, seconds: float,
+                 global_rows: int) -> dict:
+    """The numbers of one task of a world, over its ranks."""
+    per = [r[task] for r in results]
+    return {"backend": results[0]["backend"], "ranks": len(results),
+            "device": results[0]["device"], "steps": per[0]["steps"],
+            "step_s_median": max(p["step_s_median"] for p in per),
+            "epoch_s": max(p["epoch_s"] for p in per),
+            "rows_per_s": global_rows / max(p["epoch_s"] for p in per),
+            "bytes_reduced_per_step": per[0]["bytes_reduced_per_step"],
+            "bare_allreduce_ms": statistics.median(
+                p["bare_allreduce_ms"] for p in per),
+            "launches_per_rank": [p["launches"] for p in per],
+            "local_batches": [p["local_batches"] for p in per],
+            "replicas_identical": all(p["replicas_identical"] for p in per),
+            "world_s": seconds}
+
+
+def linear_result(res: dict) -> dict:
+    return {"losses": res["losses"], "b": res["b"],
+            "w": np.frombuffer(bytes.fromhex(res["w"]), np.float32)}
+
+
+def cli_world(data_uri: str, device: str, batch_rows: int,
+              extra: list, label: str) -> "tuple[list, float]":
+    """``python -m dmlc_core_tpu_torch.train`` in a 2-rank gloo world;
+    the ranks' lines and the world's seconds."""
+    argv = [sys.executable, "-m", "dmlc_core_tpu_torch.train", data_uri,
+            "--epochs", "2", "--batch-rows", str(batch_rows),
+            "--backend", "gloo", *extra]
+    if device != "cuda":
+        argv += ["--device", device]
+    t0 = time.perf_counter()
+    outs = spawn_world(lambda r: argv, DP_RANKS, label)
+    return [o.splitlines() for o in outs], time.perf_counter() - t0
+
+
+def line_loss(line: str) -> float:
+    return float(line.split("mean loss ")[1].split(" ")[0])
+
+
+def dp_phase(workdir: str, data: dict, main_run: dict,
+             main_params: LinearParams, device: str = "cuda",
+             batch_rows: int = BATCH_ROWS) -> dict:
+    """The data-parallel path: (a) the ``train`` phase's run in an NCCL
+    world of one rank, bit for bit; (b) a 2-rank gloo world sharing the
+    card on the same file (the kernel on every rank) and the Criteo-shaped
+    FM, each against one process stepping on the union of the two ranks'
+    batches; (c) the training CLI in a 2-rank world: job checkpoint, then
+    a resume from the one committed after epoch 1."""
+    from dmlc_core_tpu_torch.utils.checkpoint import (commit_job_checkpoint,
+                                                      restore_checkpoint)
+    os.environ["DCT_CSR_TO_DENSE"] = "pallas"
+    rows = data["rows"]
+    steps = -(-rows // batch_rows)
+    higgs = {"name": "linear", "model": "linear", "uri": data["text"],
+             "features": FEATURES, "batch_rows": batch_rows}
+    worlds = {}
+
+    # (a) one rank on NCCL against the train phase's run without a mesh
+    one = "nccl" if device == "cuda" else "gloo"
+    res, secs = run_dp_world(workdir, "one", 1, one, device, [higgs])
+    a = linear_result(res[0]["linear"])
+    bit_equal = (a["losses"] == list(main_run["losses"])
+                 and a["w"].tobytes() == main_params.w.cpu().numpy()
+                 .tobytes() and a["b"] == float(main_params.b))
+    worlds["nccl_1"] = world_report(res, "linear", secs, rows)
+    worlds["nccl_1"]["bit_equal_to_no_mesh"] = bit_equal
+    if not bit_equal:  # the stated fallback: the gap, at most rtol 1e-5
+        worlds["nccl_1"]["gap_vs_no_mesh"] = compare(
+            a, {"losses": main_run["losses"],
+                "w": main_params.w.cpu().numpy(),
+                "b": float(main_params.b)}, "nccl world of 1 vs no mesh")
+    if device == "cuda":
+        require(worlds["nccl_1"]["launches_per_rank"] == [steps],
+                "nccl world: a launch a step", **worlds["nccl_1"])
+
+    # (b) two ranks sharing the card over gloo: HIGGS through the kernel,
+    # then the Criteo-shaped FM for DP_FM_STEPS steps
+    fm_uri = os.path.join(workdir, "criteo_like.libfm") + "?format=libfm"
+    fm_save = os.path.join(workdir, "dp_fm_params.npz")
+    fm_task = {"name": "fm", "model": "fm", "uri": fm_uri,
+               "features": CRITEO_FEATURES, "batch_rows": batch_rows,
+               "max_steps": DP_FM_STEPS, "save": fm_save}
+    res, secs = run_dp_world(workdir, "two", DP_RANKS, "gloo", device,
+                             [higgs, fm_task])
+    local = batch_rows // DP_RANKS
+    union = os.path.join(workdir, "higgs_union_")
+    counts, files = write_unions(data["text"], union, local)
+    world_steps = len(files)
+    lrn = LinearLearner(FEATURES, margin_path="dense", device=device)
+    p, losses = union_run(files, lrn, lrn.init(), batch_rows, device)
+    two = world_report(res, "linear", secs, rows)
+    two["part_rows"] = counts
+    two["gap_vs_union"] = compare(
+        linear_result(res[0]["linear"]),
+        {"losses": losses, "w": p.w.cpu().numpy(), "b": float(p.b)},
+        "gloo world vs union run")
+    require(two["replicas_identical"]
+            and res[0]["linear"]["w"] == res[1]["linear"]["w"],
+            "gloo world: replicas differ")
+    # every rank takes the world's steps; a rank whose part ran out adds
+    # zero-weight steps, which launch nothing
+    require([r["linear"]["steps"] for r in res] == [world_steps] * DP_RANKS
+            and two["local_batches"] == [-(-c // local) for c in counts],
+            "gloo world: steps on every rank", **two)
+    if device == "cuda":
+        require(two["launches_per_rank"] == two["local_batches"],
+                "gloo world: a launch a step on every rank", **two)
+    worlds["gloo_2"] = two
+
+    _, files = write_unions(fm_uri, os.path.join(workdir, "criteo_union"),
+                            local, DP_FM_STEPS)
+    lrn = FMLearner(CRITEO_FEATURES, k=FM_RANK, device=device)
+    init = FMLearner(CRITEO_FEATURES, k=FM_RANK, device="cpu").init(seed=0)
+    p, losses = union_run(files, lrn, FMParams(*(t.to(device)
+                                                 for t in init)),
+                          batch_rows, device)
+    want_p = fm_params_to_numpy(p)
+    with np.load(fm_save) as z:
+        got_p = {k: z[k] for k in z.files}
+    la = np.asarray(res[0]["fm"]["losses"])
+    lb = np.asarray(losses)
+    fm_gap = {"loss_max_rel": float(np.max(np.abs(la - lb) / np.abs(lb))),
+              "w_max_abs": float(np.max(np.abs(got_p["w"] - want_p["w"]))),
+              "b_abs": float(abs(got_p["b"] - want_p["b"])),
+              "v_max_abs": float(np.max(np.abs(got_p["v"] - want_p["v"])))}
+    require(la.shape == lb.shape == (DP_FM_STEPS,)
+            and np.allclose(la, lb, rtol=1e-5, atol=0)
+            and np.allclose(got_p["w"], want_p["w"], rtol=1e-5, atol=1e-7)
+            and np.allclose(got_p["b"], want_p["b"], rtol=1e-5, atol=1e-7)
+            and np.allclose(got_p["v"], want_p["v"], rtol=FM_V_RTOL,
+                            atol=FM_V_ATOL), "fm world vs union run",
+            **fm_gap)
+    fm = world_report(res, "fm", secs, DP_FM_STEPS * batch_rows)
+    fm["gap_vs_union"] = fm_gap
+    require(fm["replicas_identical"], "fm world: replicas differ")
+    worlds["gloo_2_fm"] = fm
+
+    # (c) the CLI: a job checkpoint each epoch, then a resume from the
+    # step committed after epoch 1 (its parts stay; the marker is
+    # committed again at that step)
+    base = os.path.join(workdir, "dp_job.ckpt")
+    whole, secs = cli_world(data["text"], device, batch_rows,
+                            ["--checkpoint", base], "cli world")
+    require(whole[0] == whole[1] and len(whole[0]) == 2
+            and all(f"over {world_steps} batches" in ln for ln in whole[0]),
+            "cli world: the ranks' lines", lines=whole)
+    with open(base + ".commit") as f:
+        marker = json.load(f)
+    require(marker == {"schema": 1, "step": 2, "npart": DP_RANKS,
+                       "parts": [f"{base}.step2.part{p}of{DP_RANKS}"
+                                 for p in range(DP_RANKS)]},
+            "cli world: commit marker", marker=marker)
+    for step in (1, 2):
+        parts = [restore_checkpoint(f"{base}.step{step}.part{p}of2")
+                 for p in range(DP_RANKS)]
+        require(all(s == step for _, s, _ in parts)
+                and [e["part"] for _, _, e in parts] == ["0", "1"]
+                and all(parts[0][0][k].tobytes() == parts[1][0][k].tobytes()
+                        for k in parts[0][0]),
+                "cli world: job checkpoint parts", step=step)
+    commit_job_checkpoint(base, 1, DP_RANKS)
+    resumed, resume_s = cli_world(data["text"], device, batch_rows,
+                                  ["--resume", base], "cli resume world")
+    require(resumed[0] == resumed[1] and len(resumed[0]) == 1
+            and resumed[0][0].split(" mean")[0] == "epoch 1:"
+            and resumed[0][0].split(" over ")[1]
+            == whole[0][1].split(" over ")[1]
+            and np.isclose(line_loss(resumed[0][0]), line_loss(whole[0][1]),
+                           rtol=1e-5, atol=0),
+            "cli resume: the uninterrupted epoch-1 line", resumed=resumed,
+            whole=whole)
+    worlds["cli_gloo_2"] = {"backend": "gloo", "ranks": DP_RANKS,
+                            "lines": whole[0], "resumed": resumed[0],
+                            "world_s": secs, "resume_world_s": resume_s}
+
+    launches = sum(sum(worlds[w]["launches_per_rank"])
+                   for w in ("nccl_1", "gloo_2"))
+    out = {"phase": "dp", "device": device, "rows": rows,
+           "batch_rows": batch_rows, "card": "one card: the 2-rank worlds "
+           "share it over gloo and measure the code path, not NCCL "
+           "between cards",
+           "reduced": {"nccl_world_ranks": "1 (the machine has one card)",
+                       "gloo_worlds": "2 ranks share cuda:0",
+                       "fm_steps": [FM_ROWS // batch_rows, DP_FM_STEPS]},
+           "worlds": worlds, "launches": {"csr_to_dense": launches}}
+    emit(out)
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["dp-worker"]:
+        return dp_worker(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA GPU", file=sys.stderr)
@@ -1565,6 +2023,7 @@ def main() -> int:
                                    "b": float(params.b)})
         fm_phase(workdir, data)
         rank_phase(workdir, data)
+        dp = dp_phase(workdir, data, run, params)
 
     main_case = cases["train_65536x28"]
     emit({"kernels": [{
@@ -1573,7 +2032,8 @@ def main() -> int:
         "replaces": "dmlc_core_tpu/ops/pallas_kernels.py:58",
         # the paths that launch it, each counted on its own run
         "launches": (run["launches"]["csr_to_dense"]
-                     + lanes["launches"]["csr_to_dense"]),
+                     + lanes["launches"]["csr_to_dense"]
+                     + dp["launches"]["csr_to_dense"]),
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3,

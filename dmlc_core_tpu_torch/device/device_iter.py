@@ -25,8 +25,11 @@ The static-shape rules are the reference's: ``batch_rows`` rows per batch
 (the last one padded with zero-weight rows), nnz bucketed to the next power
 of two (floor ``min_nnz_bucket``; the ``.crec`` lane's bucket comes from
 the file's window table), per-nonzero local row ids with padding nonzeros
-on row ``rows_per_shard``. Batches keep the leading device axis D (1 so
-far) so that the multi-device slice can use D > 1.
+on row ``rows_per_shard``. Batches keep the reference's leading device
+axis D, which is 1 on every rank: the port's mesh is one device per
+process (``device/sharding.py``), and with ``mesh=`` the global
+``batch_rows`` splits over the mesh's ranks, ``batch_rows / mesh.size``
+rows a batch on each, read from the rank's own ``part``.
 
 The device half replaces ``jax.device_put``. Staging buffers come from
 pinned memory (``torch.empty(..., pin_memory=True)``, 64-byte aligned for
@@ -54,11 +57,13 @@ import torch
 
 from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.base import DMLCError, resolve_device
-from dmlc_core_tpu_torch.device.sharding import local_device_count
+from dmlc_core_tpu_torch.device.sharding import (check_mesh,
+                                                 local_device_count)
 from dmlc_core_tpu_torch.io.native import (BF16_STORAGE, NativeBatcher,
                                            NativeCsrRecBatcher,
                                            NativeDenseRecBatcher,
                                            NativeParser, bf16_bits)
+from dmlc_core_tpu_torch.tracker.wire import env_int
 
 __all__ = ["PaddedBatch", "DenseBatch", "DeviceRowBlockIter", "HostBatcher",
            "NativeHostBatcher", "CsrRecHostBatcher", "DenseRecHostBatcher",
@@ -871,7 +876,7 @@ class DenseRecHostBatcher:
 
 class DeviceRowBlockIter:
     """Row-block iterator whose batches live on the device (the port of
-    the reference's DeviceRowBlockIter, one device).
+    the reference's DeviceRowBlockIter).
 
     Iterate to get :class:`PaddedBatch` / :class:`DenseBatch` objects whose
     ``big``/``aux``/``x`` are tensors on ``device``; ``before_first()``,
@@ -885,7 +890,12 @@ class DeviceRowBlockIter:
     reads the suffix: ``.drec`` -> ``recd``, ``.crec`` -> ``crec``,
     ``.rec`` -> ``rec``) and ``index64``; bf16 CSR values
     (``csr_val_dtype="bf16"``) are a text/rec-lane option and are refused
-    on the crec, recd and index64 lanes, as in the reference."""
+    on the crec, recd and index64 lanes, as in the reference.
+
+    With ``mesh=`` (a ``DataMesh``), ``batch_rows`` is the global batch:
+    this rank builds batches of ``batch_rows / mesh.size`` rows from its
+    ``part`` of ``npart`` (which must divide), on the mesh's device unless
+    ``device`` names another."""
 
     _SHUTDOWN = object()
 
@@ -896,8 +906,10 @@ class DeviceRowBlockIter:
                  prefetch: int = 2, layout: str = "auto",
                  dense_max_features: int = 512, dense_dtype=np.float32,
                  csr_val_dtype: str = "f32", device=None):
+        check_mesh(mesh)
         num_shards = local_device_count(mesh)
-        self.device = resolve_device(device)
+        self.device = (mesh.device if device is None and mesh is not None
+                       else resolve_device(device))
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         path_part = uri.split("?", 1)[0].split("#", 1)[0]
@@ -913,6 +925,12 @@ class DeviceRowBlockIter:
                 "(the fused fill converts values in-pass); the crec/recd "
                 "binary lanes and the index64 python batcher keep f32")
         self.batch_rows = batch_rows
+        self.mesh = mesh
+        if mesh is not None:
+            # batch_rows is the GLOBAL batch: it splits over the mesh's
+            # ranks, as the reference's splits over its devices
+            _check_shards(batch_rows, mesh.size)
+        local_rows = batch_rows // (1 if mesh is None else mesh.size)
         # determinism keys for mid-epoch resume (state()/restore()), after
         # the suffix rule, so fmt="auto" and the explicit format agree
         self._identity = {"uri": uri, "part": part, "npart": npart,
@@ -920,24 +938,24 @@ class DeviceRowBlockIter:
         pin = self.device.type == "cuda"
         if fmt == "recd":
             self.batcher = DenseRecHostBatcher(
-                uri, part=part, npart=npart, batch_rows=batch_rows,
+                uri, part=part, npart=npart, batch_rows=local_rows,
                 num_shards=num_shards, dense_dtype=dense_dtype, pin=pin)
         elif fmt == "crec":
             self.batcher = CsrRecHostBatcher(
-                uri, part=part, npart=npart, batch_rows=batch_rows,
+                uri, part=part, npart=npart, batch_rows=local_rows,
                 num_shards=num_shards, min_nnz_bucket=min_nnz_bucket,
                 pin=pin)
         elif index64:
             self.batcher = HostBatcher(
                 NativeParser(uri, part=part, npart=npart, fmt=fmt,
                              nthread=nthread, index64=True),
-                batch_rows, num_shards, min_nnz_bucket, layout=layout,
+                local_rows, num_shards, min_nnz_bucket, layout=layout,
                 dense_max_features=dense_max_features,
                 dense_dtype=dense_dtype, pin=pin)
         else:
             self.batcher = NativeHostBatcher(
                 uri, part=part, npart=npart, fmt=fmt, nthread=nthread,
-                batch_rows=batch_rows, num_shards=num_shards,
+                batch_rows=local_rows, num_shards=num_shards,
                 min_nnz_bucket=min_nnz_bucket, layout=layout,
                 dense_max_features=dense_max_features,
                 dense_dtype=dense_dtype, csr_val_dtype=csr_val_dtype,
@@ -1215,6 +1233,52 @@ class DeviceRowBlockIter:
         (idempotent)."""
         self._join_threads()
         self.batcher.close()
+
+    def abort_drain(self, reason: str = "tracker-abort") -> None:
+        """Abort-path teardown with a BOUNDED wall clock
+        (``DMLC_DEVICE_ABORT_DRAIN_MS``, default 2000 ms): a survivor of a
+        dead peer drains this pipeline and exits promptly, even if the
+        transfer thread is parked in a copy it cannot finish.
+
+        Unlike the cooperative :meth:`_join_threads`, the joins give up at
+        the deadline (the threads are daemons; the process is about to
+        exit). A CUDA staging buffer goes back to the pool only after its
+        copy's event completed, so there is no buffer to force-drop here.
+        Counted in ``device_abort_drains_total``; idempotent, and
+        :meth:`close` stays safe after it."""
+        deadline = time.monotonic() + max(
+            1, env_int("DMLC_DEVICE_ABORT_DRAIN_MS", 2000)) / 1000.0
+        self._stop.set()
+        joined = True
+        for th, q in ((self._thread, self._host_q),
+                      (self._xfer_thread, self._queue)):
+            if th is None:
+                continue
+            while th.is_alive():
+                if time.monotonic() > deadline:
+                    joined = False
+                    break
+                try:  # drain so a blocked put can finish
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                th.join(timeout=0.02)
+        self._thread = None
+        self._xfer_thread = None
+        for q in (self._host_q, self._queue):
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+        if joined:
+            # only a fully stopped pipeline may rearm; a straggler thread
+            # still sees _stop and exits on its own
+            self._stop.clear()
+        telemetry.counter("device_abort_drains_total").inc()
+        telemetry.flight_dump(
+            f"device-abort-drain: {reason} (threads "
+            f"{'joined' if joined else 'abandoned at deadline'})")
 
     def __enter__(self):
         return self

@@ -1,32 +1,66 @@
-"""Input-split rank math for the device path (single device).
+"""The data mesh and input-split rank math for the device path.
 
-Port of ``process_part`` and ``local_device_count`` from
-``dmlc_core_tpu/tpu/sharding.py``. This slice runs on one device; a mesh
-is refused by name (ROADMAP.md queue 1, "Multi-process data parallelism
-via torch.distributed").
+Port of ``data_mesh``, ``process_part`` and ``local_device_count`` from
+``dmlc_core_tpu/tpu/sharding.py``.
+
+The port's mesh is ONE DEVICE PER PROCESS. The reference's mesh spans the
+devices of its processes, and a batch carries a device axis of D shards,
+one per device; here each rank of a ``torch.distributed`` world owns one
+device, so a batch's device axis stays D = 1 on every rank and the
+reference's D-device in-process mesh maps onto D ranks. The learners take
+the mesh as ``mesh=`` and reduce each step over its process group; the
+iterator takes it to split the global ``batch_rows`` over its ranks.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
 
 import torch
 
-from dmlc_core_tpu_torch.base import DMLCError
+from dmlc_core_tpu_torch.base import DMLCError, resolve_device
 from dmlc_core_tpu_torch.tracker.wire import env_int_opt
 
-__all__ = ["process_part", "local_device_count", "refuse_mesh"]
+__all__ = ["DataMesh", "data_mesh", "check_mesh", "process_part",
+           "local_device_count"]
 
 
-def refuse_mesh(mesh) -> None:
-    """Raise unless ``mesh`` is None: the port runs on one device until the
-    multi-device slice lands."""
-    if mesh is not None:
+@dataclass(frozen=True)
+class DataMesh:
+    """A 1-D data-parallel mesh, one device per process: the process group
+    (None outside a ``torch.distributed`` world), this rank, the number of
+    ranks, and this rank's device."""
+
+    group: Optional[Any]
+    rank: int
+    size: int
+    device: torch.device
+
+
+def data_mesh(device=None) -> DataMesh:
+    """The mesh over every rank of the initialized world (a world of one
+    outside one). ``device`` defaults to ``cuda`` — the card
+    ``init_from_env`` made current — and raises without CUDA; pass
+    ``device="cpu"`` for the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return DataMesh(group=dist.group.WORLD, rank=dist.get_rank(),
+                        size=dist.get_world_size(), device=dev)
+    return DataMesh(group=None, rank=0, size=1, device=dev)
+
+
+def check_mesh(mesh) -> None:
+    """Raise unless ``mesh`` is None or a :class:`DataMesh`."""
+    if mesh is not None and not isinstance(mesh, DataMesh):
         raise DMLCError(
-            "the port runs on one device; a mesh needs the multi-device "
-            "slice (ROADMAP.md queue 1, 'Multi-process data parallelism "
-            "via torch.distributed')")
+            f"mesh must be a DataMesh from device.sharding.data_mesh() (the "
+            f"port's multi-device mesh: one device per process), got "
+            f"{type(mesh).__name__}")
 
 
 def process_part() -> Tuple[int, int]:
@@ -62,7 +96,8 @@ def process_part() -> Tuple[int, int]:
     return 0, 1
 
 
-def local_device_count(mesh=None) -> int:
-    """Devices a batch is split over: 1 until the multi-device slice."""
-    refuse_mesh(mesh)
+def local_device_count(mesh: Optional[DataMesh] = None) -> int:
+    """Devices a batch is split over in this process: 1 for every rank (the
+    port's mesh is one device per process)."""
+    del mesh
     return 1

@@ -1,4 +1,4 @@
-"""Factorization machine (port of ``models/fm.py``, one device).
+"""Factorization machine (port of ``models/fm.py``).
 
 Margin (Rendle's O(NNZ·K) identity):
 
@@ -21,7 +21,7 @@ import torch
 
 from dmlc_core_tpu_torch.base import resolve_device
 from dmlc_core_tpu_torch.device.device_iter import unpack_tree
-from dmlc_core_tpu_torch.device.sharding import refuse_mesh
+from dmlc_core_tpu_torch.device.sharding import check_mesh
 from dmlc_core_tpu_torch.models._dp import DataParallelModel
 from dmlc_core_tpu_torch.models.linear import objective_loss
 from dmlc_core_tpu_torch.ops.sparse import _segment_sum, csr_matvec
@@ -64,7 +64,8 @@ def _margin(params: FMParams, shard, num_rows: int) -> torch.Tensor:
 
 
 class FMLearner(DataParallelModel):
-    """Second-order factorization machine on one device.
+    """Second-order factorization machine on one device, or on every rank
+    of a ``DataMesh`` (``mesh=``).
 
     Usage::
 
@@ -73,22 +74,24 @@ class FMLearner(DataParallelModel):
         for batch in DeviceRowBlockIter(uri, layout="csr"):
             params, loss = learner.step(params, batch)
 
-    ``device`` defaults to ``cuda`` (raises without CUDA); pass
-    ``device="cpu"`` to run on the CPU."""
+    ``device`` defaults to the mesh's device, else ``cuda`` (raises
+    without CUDA); pass ``device="cpu"`` to run on the CPU."""
 
     def __init__(self, num_features: int, k: int = 8, mesh=None,
                  objective: str = "logistic", learning_rate: float = 0.05,
                  l2: float = 0.0, init_scale: float = 0.01, device=None):
         if k <= 0:
             raise ValueError(f"factor rank k must be positive, got {k}")
-        refuse_mesh(mesh)
+        check_mesh(mesh)
+        self.mesh = mesh
         self.num_features = num_features
         self.k = k
         self.objective = objective
         self.learning_rate = learning_rate
         self.l2 = l2
         self.init_scale = init_scale
-        self.device = resolve_device(device)
+        self.device = (mesh.device if device is None and mesh is not None
+                       else resolve_device(device))
 
     def init(self, seed: int = 0) -> FMParams:
         """Zero linear part and small normal factors (an all-zero V has

@@ -1,4 +1,4 @@
-"""Sparse linear learner (port of ``models/linear.py``, one device).
+"""Sparse linear learner (port of ``models/linear.py``).
 
 Logistic, squared or pairwise (RankNet over qid groups) loss over
 PaddedBatch/DenseBatch shards; parameters and math stay float32. ``margin_path="dense"`` materializes the shard
@@ -15,7 +15,7 @@ import torch
 
 from dmlc_core_tpu_torch.base import resolve_device
 from dmlc_core_tpu_torch.device.device_iter import unpack_tree
-from dmlc_core_tpu_torch.device.sharding import refuse_mesh
+from dmlc_core_tpu_torch.device.sharding import check_mesh
 from dmlc_core_tpu_torch.models._dp import DataParallelModel
 from dmlc_core_tpu_torch.ops.ranking import pairwise_logistic_loss
 from dmlc_core_tpu_torch.ops.sparse import csr_matvec, csr_to_dense
@@ -90,7 +90,8 @@ def _shard_loss(params: LinearParams, shard: Dict[str, torch.Tensor],
 
 
 class LinearLearner(DataParallelModel):
-    """Sparse linear model on one device.
+    """Sparse linear model on one device, or on every rank of a
+    ``DataMesh`` (``mesh=``: one all_reduce a step, see ``models/_dp.py``).
 
     Usage::
 
@@ -99,20 +100,22 @@ class LinearLearner(DataParallelModel):
         for batch in DeviceRowBlockIter(uri, layout="csr"):
             params, loss = learner.step(params, batch)
 
-    ``device`` defaults to ``cuda`` (raises without CUDA); pass
-    ``device="cpu"`` to run on the CPU."""
+    ``device`` defaults to the mesh's device, else ``cuda`` (raises
+    without CUDA); pass ``device="cpu"`` to run on the CPU."""
 
     def __init__(self, num_features: int, mesh=None,
                  objective: str = "logistic", learning_rate: float = 0.1,
                  l2: float = 0.0, margin_path: str = "segment",
                  device=None):
-        refuse_mesh(mesh)
+        check_mesh(mesh)
+        self.mesh = mesh
         self.num_features = num_features
         self.objective = objective
         self.learning_rate = learning_rate
         self.l2 = l2
         self.margin_path = margin_path
-        self.device = resolve_device(device)
+        self.device = (mesh.device if device is None and mesh is not None
+                       else resolve_device(device))
 
     def init(self, seed: int = 0) -> LinearParams:
         """Zero parameters on the learner's device (zero init is canonical

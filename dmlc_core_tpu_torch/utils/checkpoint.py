@@ -22,19 +22,21 @@ fails. Any failure cleans up and raises :class:`CheckpointError`
 (counted in ``ckpt_save_failures_total``); every local file op is
 injectable through ``DMLC_FS_FAULT_PLAN``.
 
-The two-phase job checkpoints and ``fast_forward`` belong to elastic
-training (ROADMAP.md queue 1, "Multi-process data parallelism via
-torch.distributed").
+The two-phase job checkpoints of a world (one part per rank, then a
+commit marker from rank 0: ``save_job_checkpoint``,
+``commit_job_checkpoint``, ``restore_job_checkpoint``) and
+``fast_forward`` are the reference's too, byte for byte.
 """
 
 from __future__ import annotations
 
 import io
+import json
 import os
 import random
 import time
 import uuid
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +49,9 @@ from dmlc_core_tpu_torch.tracker.wire import env_int
 from dmlc_core_tpu_torch.utils import fs_fault
 
 __all__ = ["CheckpointError", "save_checkpoint", "restore_checkpoint",
-           "flatten_with_keys"]
+           "flatten_with_keys", "job_part_uri", "job_commit_uri",
+           "save_job_checkpoint", "commit_job_checkpoint",
+           "restore_job_checkpoint", "fast_forward"]
 
 _MAGIC = b"DCTCKPT1"
 
@@ -472,3 +476,173 @@ def restore_checkpoint(uri: str, like: Any = None
         leaves.append(torch.from_numpy(arr).to(tmpl.device)
                       if isinstance(tmpl, torch.Tensor) else arr)
     return _rebuild(like, iter(leaves)), step, extra
+
+
+# -- two-phase job checkpoints ------------------------------------------------
+# One checkpoint per rank of a world is not atomic as a set: a kill between
+# the ranks' saves leaves a mixed-step set that resumes a silently
+# diverging world. The two phases make the job checkpoint atomic:
+#
+#   phase 1  every rank publishes `<base>.step<N>.part<k>of<n>` through the
+#            atomic per-file path above (save_job_checkpoint);
+#   phase 2  rank 0 checks every part of step N is complete, then
+#            atomically publishes `<base>.commit`, a small JSON marker
+#            naming the step and the whole part set (commit_job_checkpoint).
+#
+# restore_job_checkpoint trusts ONLY the marker: parts newer than the
+# committed step are invisible, a part the marker names but that is missing
+# or truncated is a loud error, and no marker means a fresh start. The
+# parts and the marker are the reference's bytes.
+
+_JOB_SCHEMA = 1
+
+
+def job_part_uri(base: str, step: int, part: int, npart: int) -> str:
+    """The per-rank part URI of job step ``step``: step-qualified, so a
+    later step's save never overwrites a committed step's bytes."""
+    return f"{base}.step{int(step)}.part{int(part)}of{int(npart)}"
+
+
+def job_commit_uri(base: str) -> str:
+    """The job's commit-marker URI (one per job; overwritten atomically)."""
+    return f"{base}.commit"
+
+
+def save_job_checkpoint(base: str, params: Any, step: int, part: int,
+                        npart: int,
+                        extra: Optional[Dict[str, str]] = None) -> str:
+    """Phase 1: publish this rank's part of job step ``step`` atomically.
+    Returns the part URI. The step is not resumable until rank 0 runs
+    :func:`commit_job_checkpoint`."""
+    uri = job_part_uri(base, step, part, npart)
+    save_checkpoint(uri, params, step=step, extra=extra)
+    return uri
+
+
+def _part_is_complete(uri: str) -> bool:
+    """True when the part holds a structurally complete checkpoint: local
+    parts are walked byte for byte, remote ones were size-verified by
+    their own save, so presence with a plausible size is the check."""
+    path = _local_path(uri)
+    if path is not None:
+        return _is_complete_body(path)
+    try:
+        size, is_dir = path_info(uri)
+        return not is_dir and size > len(_MAGIC)
+    except (DMLCError, OSError):
+        return False
+
+
+def commit_job_checkpoint(base: str, step: int, npart: int) -> str:
+    """Phase 2 (rank 0 only): check that every part of ``step`` is
+    complete, then atomically publish the commit marker naming the set.
+
+    Raises :class:`CheckpointError`, with the previous marker untouched,
+    when a part is missing or truncated: committing a torn set is the
+    mixed-step resume this protocol exists to prevent."""
+    parts = [job_part_uri(base, step, p, npart) for p in range(npart)]
+    for uri in parts:
+        if not _part_is_complete(uri):
+            raise _ckpt_fail(
+                job_commit_uri(base), "commit",
+                DMLCError(f"part {uri} is missing or incomplete; refusing "
+                          f"to commit a torn step-{step} set"),
+                guarantee="the previous commit marker is untouched — "
+                          "restore still resumes the last committed step")
+    body = json.dumps({"schema": _JOB_SCHEMA, "step": int(step),
+                       "npart": int(npart), "parts": parts},
+                      sort_keys=True).encode()
+    marker = job_commit_uri(base)
+    path = _local_path(marker)
+    if path is None:
+        try:
+            _put_verified(marker, body)
+        except (DMLCError, OSError) as e:
+            raise _ckpt_fail(marker, "commit", e) from e
+        return marker
+    # the local save's temp + fsync + rename, for a JSON body
+    tmp = f"{path}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}"
+    try:
+        fs_fault.maybe_inject("open", tmp)
+        with open(tmp, "wb") as f:
+            fs_fault.checked_write(f.write, body, tmp)
+            f.flush()
+            fs_fault.checked_fsync(f.fileno(), tmp)
+        fs_fault.checked_replace(tmp, path)
+    except BaseException as e:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        if isinstance(e, Exception):
+            raise _ckpt_fail(marker, "commit", e) from e
+        raise
+    try:
+        dfd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+    except OSError:
+        pass
+    return marker
+
+
+def restore_job_checkpoint(base: str, part: int, npart: int,
+                           like: Any = None
+                           ) -> Optional[Tuple[Any, int, Dict[str, str]]]:
+    """Restore this rank's part of the last COMMITTED job step: (params,
+    step, extra), or None when no commit marker exists (a fresh start).
+
+    Parts published after the committed step are ignored. Raises when the
+    marker was committed by another number of ranks (their parts slice the
+    stream differently), when a committed part is missing or corrupt, or
+    when the part's recorded step disagrees with the marker."""
+    marker = job_commit_uri(base)
+    try:
+        raw = _read_all(marker)
+    except (DMLCError, OSError):
+        return None
+    try:
+        meta = json.loads(raw.decode())
+        step = int(meta["step"])
+        m_npart = int(meta["npart"])
+        parts = list(meta["parts"])
+    except (ValueError, KeyError, TypeError) as e:
+        raise DMLCError(f"corrupt job commit marker {marker}: {e}") from e
+    if m_npart != int(npart) or len(parts) != m_npart:
+        raise DMLCError(
+            f"job checkpoint {marker} was committed by {m_npart} rank(s) "
+            f"but this world has {npart}: the per-part streams do not line "
+            f"up; start fresh or restore with the original world size")
+    if not 0 <= int(part) < m_npart:
+        raise DMLCError(f"part {part} out of range for {marker} "
+                        f"({m_npart} parts)")
+    params, got_step, extra = restore_checkpoint(parts[int(part)],
+                                                 like=like)
+    if got_step != step:
+        raise DMLCError(
+            f"job commit marker {marker} names step {step} but part "
+            f"{parts[int(part)]} holds step {got_step}: the marker and the "
+            f"part set disagree; refusing a mixed-step resume")
+    return params, step, extra
+
+
+def fast_forward(iterator: Iterable, n_batches: int) -> Iterator:
+    """Skip ``n_batches`` from a deterministic-order batch iterator (a
+    mid-epoch data resume); returns the advanced iterator. It pulls the
+    skipped batches through the whole pipeline; ``DeviceRowBlockIter``'s
+    ``state()``/``restore()`` skip them on the staging thread instead.
+
+    Raises :class:`DMLCError` when the iterator runs dry first: a resume
+    point past the end of the data means the checkpoint and the stream
+    disagree, and yielding nothing would hide it."""
+    it = iter(iterator)
+    sentinel = object()
+    for skipped in range(n_batches):
+        if next(it, sentinel) is sentinel:
+            raise DMLCError(
+                f"fast_forward: iterator exhausted after {skipped} of "
+                f"{n_batches} batches; checkpoint resume point is past "
+                f"end-of-data")
+    return it

@@ -9,9 +9,14 @@ checkpoint whole (the reference's ``test_checkpoint_local_fault_matrix``
 shapes, through the port's own fault plan); a remote save through the
 mock S3 server uploads a temp object, verifies sizes, tombstones the
 temp, and fails in a structured way when a verify keeps failing (the
-reference's remote cases in ``tests/test_fs_fault.py``).
+reference's remote cases in ``tests/test_fs_fault.py``). The two-phase
+job checkpoint writes the reference's parts and commit marker byte for
+byte, refuses a torn set, a world-size mismatch and a mixed-step marker
+(the reference's ``test_torn_job_checkpoint_refused``), and
+``fast_forward`` skips as the reference's does.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -30,6 +35,7 @@ from test_s3 import _STATE as S3_STATE
 from dmlc_core_tpu.models.linear import LinearParams as RefParams
 from dmlc_core_tpu.serving import model as ref_serving
 from dmlc_core_tpu.utils import checkpoint as ref_ckpt
+from tests.torch_reference_native import reference_native  # noqa: F401
 
 from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.base import DMLCError
@@ -274,3 +280,95 @@ def test_remote_target_verify_failure_warns_partial(monkeypatch, s3_keys):
     with pytest.raises(ckpt.CheckpointError, match="partial"):
         ckpt.save_checkpoint("s3://bkt/torch-ckpt/torn.ckpt",
                              _numpy_params(12), step=1)
+
+
+# -- two-phase job checkpoints ----------------------------------------------
+def test_job_parts_and_marker_bytes_match_reference(tmp_path):
+    p = _numpy_params(6)
+    ours, ref = str(tmp_path / "ours" / "job"), str(tmp_path / "ref" / "job")
+    os.makedirs(os.path.dirname(ours))
+    os.makedirs(os.path.dirname(ref))
+    for part in range(2):
+        extra = dict(EXTRA, part=str(part), npart="2")
+        got = ckpt.save_job_checkpoint(
+            ours, linear_params_from_numpy(p, device="cpu"), 3, part, 2,
+            extra=extra)
+        want = ref_ckpt.save_job_checkpoint(
+            ref, RefParams(w=jnp.asarray(p["w"]), b=jnp.asarray(p["b"])),
+            3, part, 2, extra=extra)
+        assert got == ckpt.job_part_uri(ours, 3, part, 2) == \
+            want.replace(ref, ours) == f"{ours}.step3.part{part}of2"
+        assert _read(got) == _read(want)
+    assert ckpt.commit_job_checkpoint(ours, 3, 2) == \
+        ckpt.job_commit_uri(ours) == f"{ours}.commit"
+    ref_ckpt.commit_job_checkpoint(ref, 3, 2)
+    # the marker names the parts by their URIs: the same JSON with the
+    # other base
+    assert _read(f"{ours}.commit") == \
+        _read(f"{ref}.commit").replace(ref.encode(), ours.encode())
+    assert json.loads(_read(f"{ours}.commit")) == {
+        "schema": 1, "step": 3, "npart": 2,
+        "parts": [f"{ours}.step3.part0of2", f"{ours}.step3.part1of2"]}
+    like = LinearParams(w=torch.zeros(7), b=torch.zeros(()))
+    for part in range(2):
+        # each package restores the other's job
+        got, step, extra = ckpt.restore_job_checkpoint(ref, part, 2,
+                                                       like=like)
+        np.testing.assert_array_equal(got.w.numpy(), p["w"])
+        assert step == 3 and extra["part"] == str(part)
+        flat, step, _ = ref_ckpt.restore_job_checkpoint(ours, part, 2)
+        np.testing.assert_array_equal(flat[".w"], p["w"])
+
+
+def test_torn_job_checkpoint_refused(tmp_path):
+    base = str(tmp_path / "job.ckpt")
+    like = {"w": np.zeros(4, np.float32)}
+    p2 = {"w": np.arange(4, dtype=np.float32)}
+    for part in range(2):
+        ckpt.save_job_checkpoint(base, p2, 2, part, 2, extra={"tag": "a"})
+    ckpt.commit_job_checkpoint(base, 2, 2)
+
+    # torn step 4: only rank 0 published before the (simulated) crash
+    ckpt.save_job_checkpoint(base, {"w": p2["w"] + 1}, 4, 0, 2)
+    before = _read(ckpt.job_commit_uri(base))
+    with pytest.raises(ckpt.CheckpointError, match="torn step-4 set"):
+        ckpt.commit_job_checkpoint(base, 4, 2)
+    assert _read(ckpt.job_commit_uri(base)) == before
+
+    # restore on BOTH ranks falls back to the committed step
+    for part in range(2):
+        params, step, extra = ckpt.restore_job_checkpoint(base, part, 2,
+                                                          like=like)
+        assert step == 2
+        assert extra["tag"] == "a"
+        np.testing.assert_array_equal(params["w"], p2["w"])
+
+    # no marker at all -> fresh start (None), not an error
+    assert ckpt.restore_job_checkpoint(str(tmp_path / "never"), 0, 2,
+                                       like=like) is None
+
+    # world-size mismatch: a 2-rank commit refused on a 3-rank world
+    with pytest.raises(DMLCError, match="committed by 2 rank"):
+        ckpt.restore_job_checkpoint(base, 0, 3, like=like)
+
+    # a marker that lies about the step (names parts holding another
+    # step) is a mixed-step resume: refused
+    marker = ckpt.job_commit_uri(base)
+    with open(marker) as f:
+        meta = json.load(f)
+    meta["step"] = 4
+    meta["parts"] = [ckpt.job_part_uri(base, 2, p, 2) for p in range(2)]
+    with open(marker, "w") as f:
+        json.dump(meta, f)
+    with pytest.raises(DMLCError, match="mixed-step resume"):
+        ckpt.restore_job_checkpoint(base, 0, 2, like=like)
+
+
+def test_fast_forward():
+    it = ckpt.fast_forward(iter(range(10)), 4)
+    assert next(it) == 4 == next(ref_ckpt.fast_forward(iter(range(10)), 4))
+
+
+def test_fast_forward_past_end_raises():
+    with pytest.raises(DMLCError, match="exhausted after 3 of 5"):
+        ckpt.fast_forward(iter(range(3)), 5)

@@ -206,3 +206,30 @@ def test_new_phases_rehearsal_on_cpu(tmp_path, one_thread):
     assert rank["losses"][0] == pytest.approx(np.log(2.0))
     assert rank["losses"][-1] < rank["losses"][0]
     assert set(rank["refusals"]) == {"oversized", "no_qid"}
+
+
+def test_dp_union_files_follow_the_world_steps(tmp_path):
+    """The ``dp`` phase's union files: step k holds part 0's k-th batch of
+    ``local`` rows, then part 1's, as the ranks' parsers split the file;
+    the HIGGS-shaped file's part 0 holds one row more (the split starts
+    part 1 after the middle line), so the last step is part 0's last row
+    alone. The parser's rows of every step equal the parts' rows."""
+    from dmlc_core_tpu_torch.io.native import NativeParser
+    data = cs.write_higgs_files(str(tmp_path), rows=4096)
+    counts, files = cs.write_unions(data["text"], str(tmp_path / "u"), 512)
+    assert counts == [2049, 2047] and len(files) == 5
+
+    def rows(uri, **kw):
+        with NativeParser(uri, **kw) as p:
+            return np.concatenate([b.value.copy() for b in p]).reshape(
+                -1, cs.FEATURES)
+
+    parts = [rows(data["text"], part=p, npart=2) for p in range(2)]
+    for k, uri in enumerate(files):
+        want = np.concatenate([parts[0][512 * k:512 * (k + 1)],
+                               parts[1][512 * k:512 * (k + 1)]])
+        assert np.array_equal(rows(uri), want), k
+    assert len(rows(files[-1])) == 1
+    _, first = cs.write_unions(data["text"], str(tmp_path / "f"), 512,
+                               max_steps=2)
+    assert len(first) == 2

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from dmlc_core_tpu.io import convert as ref
+from tests.torch_reference_native import reference_native  # noqa: F401
 
 from dmlc_core_tpu_torch.base import DMLCError
 from dmlc_core_tpu_torch.io import convert

@@ -8,12 +8,21 @@ versions) ties the card to the reference. On the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-(``--noconftest``: tests/conftest.py configures JAX.)
+(``--noconftest``: tests/conftest.py configures JAX.) The data-parallel
+cases spawn worlds of ``tests/torch_world_worker.py``: one rank on NCCL,
+and two ranks sharing the card over gloo (NCCL refuses two ranks on one
+device).
 """
+
+import json
 
 import numpy as np
 import pytest
 import torch
+
+# by module name, not as tests.torch_world_worker: pytest puts tests/ on
+# sys.path, and a machine may have another top-level ``tests`` package
+from torch_world_worker import run_world, worker_argv
 
 from dmlc_core_tpu_torch.base import DMLCError
 from dmlc_core_tpu_torch.device import device_iter as di
@@ -355,3 +364,86 @@ def test_pairwise_steps_on_cuda_match_cpu(cuda_device, tmp_path):
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
     for g, w in zip(got[1], want[1]):  # w, b
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7)
+
+
+def dp_world(tmp_path, size, backend, case):
+    """A ``dp`` world of ``size`` ranks on the card: (rank results)."""
+    spec = tmp_path / f"spec_{backend}{size}.json"
+    spec.write_text(json.dumps({"device": "cuda", "backend": backend,
+                                "cases": [case]}))
+    outs = [tmp_path / f"{backend}{size}_rank{r}.npz" for r in range(size)]
+    run_world(lambda r: worker_argv("dp", spec, outs[r]), size=size,
+              env={"DCT_CSR_TO_DENSE": "pallas"})
+    res = []
+    for o in outs:
+        with np.load(o) as z:
+            res.append({k: z[k] for k in z.files})
+    return res
+
+
+DP_CASE = dict(name="logistic", model="linear", objective="logistic",
+               layout="csr", margin_path="dense", features=6, lr=0.5,
+               batch_rows=128, bucket=1024)
+
+
+def test_nccl_world_of_one_matches_no_mesh(cuda_device, tmp_path,
+                                           monkeypatch):
+    """One rank on NCCL steps as the learner without a mesh on the card
+    (through the kernel, one launch a step); rtol 1e-5 (the dense margin
+    adds once per cell, so the two are expected to agree bit for bit)."""
+    path = write_libsvm(tmp_path / "n.libsvm", rows=512, features=6,
+                        seed=4)
+    (res,) = dp_world(tmp_path, 1, "nccl", dict(DP_CASE, files=[path]))
+    monkeypatch.setenv("DCT_CSR_TO_DENSE", "pallas")
+    learner = LinearLearner(6, learning_rate=0.5, margin_path="dense",
+                            device="cuda")
+    params, losses = learner.init(), []
+    with di.DeviceRowBlockIter(path, batch_rows=128, min_nnz_bucket=1024,
+                               layout="csr", prefetch=0,
+                               device="cuda") as it:
+        for batch in it:
+            params, loss = learner.step(params, batch)
+            losses.append(float(loss))
+    assert len(losses) == 4 == int(res["logistic/kernel_launches"])
+    assert int(res["logistic/all_reduce_calls"]) == 4
+    np.testing.assert_allclose(res["logistic/losses"], losses, rtol=1e-5)
+    np.testing.assert_allclose(res["logistic/param.w"],
+                               params.w.cpu().numpy(), rtol=1e-5, atol=1e-7)
+
+
+def test_gloo_world_shares_one_card(cuda_device, tmp_path, monkeypatch):
+    """Two ranks on cuda:0 over gloo: bit-identical replicas, the kernel
+    launched once a step on each rank, and the union of their batches
+    stepped in one process on the card at rtol 1e-5."""
+    rng = np.random.default_rng(8)
+    shards = []
+    for r in range(2):
+        lines = []
+        for _ in range(128):
+            x = rng.uniform(-1, 1, 6)
+            lines.append(f"{int(x[0] > 0)} " + " ".join(
+                f"{j}:{x[j]:.4f}" for j in range(6)))
+        shards.append(lines)
+        (tmp_path / f"s{r}.libsvm").write_text("\n".join(lines) + "\n")
+    files = [str(tmp_path / f"s{r}.libsvm") for r in range(2)]
+    r0, r1 = dp_world(tmp_path, 2, "gloo", dict(DP_CASE, files=files))
+    for k in r0:
+        assert r0[k].tobytes() == r1[k].tobytes(), k
+    assert int(r0["logistic/kernel_launches"]) == 2
+    monkeypatch.setenv("DCT_CSR_TO_DENSE", "pallas")
+    learner = LinearLearner(6, learning_rate=0.5, margin_path="dense",
+                            device="cuda")
+    params, losses = learner.init(), []
+    for k in range(2):
+        union = tmp_path / f"union{k}.libsvm"
+        union.write_text("\n".join(shards[0][64 * k:64 * (k + 1)]
+                                   + shards[1][64 * k:64 * (k + 1)]) + "\n")
+        with di.DeviceRowBlockIter(str(union), batch_rows=128,
+                                   min_nnz_bucket=1024, layout="csr",
+                                   prefetch=0, device="cuda") as it:
+            (batch,) = list(it)
+            params, loss = learner.step(params, batch)
+        losses.append(float(loss))
+    np.testing.assert_allclose(r0["logistic/losses"], losses, rtol=1e-5)
+    np.testing.assert_allclose(r0["logistic/param.w"],
+                               params.w.cpu().numpy(), rtol=1e-5, atol=1e-7)

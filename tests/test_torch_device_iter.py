@@ -6,17 +6,20 @@ The same seeded libsvm file goes through the reference
 reference's leaves exactly (the planes are copied, never recomputed).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from dmlc_core_tpu.tpu import device_iter as ref_di
 from dmlc_core_tpu.tpu.sharding import process_part as ref_process_part
+from tests.torch_reference_native import reference_native  # noqa: F401
 
 from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.base import DMLCError
 from dmlc_core_tpu_torch.device import device_iter as di
-from dmlc_core_tpu_torch.device.sharding import process_part
+from dmlc_core_tpu_torch.device.sharding import DataMesh, process_part
 
 # (layout, dense dtype): the csr lane with f32 values, the dense lane in
 # f32 and bf16
@@ -212,13 +215,13 @@ def test_pinned_staging_is_aligned():
     (dict(mesh=object()), "multi-device")])
 def test_unported_lanes_raise_naming_roadmap(tmp_path, kw, match):
     """What the iterator refuses raises at construction: bf16 values on
-    the crec, recd and index64 lanes (as the reference refuses them) and
-    an unknown value dtype; the one part still unported, a mesh, names
-    its ROADMAP.md item."""
+    the crec, recd and index64 lanes (as the reference refuses them), an
+    unknown value dtype, and a mesh that is not the port's ``DataMesh``
+    (one device per process), which the error names."""
     path = write_libsvm(tmp_path / "i.libsvm", rows=10)
     with pytest.raises(DMLCError, match=match) as e:
         di.DeviceRowBlockIter(path, device="cpu", **kw)
-    assert ("ROADMAP.md" in str(e.value)) == ("mesh" in kw)
+    assert ("DataMesh" in str(e.value)) == ("mesh" in kw)
 
 
 def test_dense_dtype_refused():
@@ -292,3 +295,65 @@ def test_env_parsers_match_reference(monkeypatch, raw):
         assert "not an integer" in str(e)
     else:
         assert wire.env_int_opt("DCT_PROBE_INT") == want
+
+
+def test_device_abort_drain_bounded(tmp_path):
+    """The reference's abort drain case against the port: a live pipeline
+    drains within DMLC_DEVICE_ABORT_DRAIN_MS (default 2000 ms) plus
+    slack, the drain is counted, close() is safe after it, and a second
+    drain of a closed iterator is too."""
+    path = write_libsvm(tmp_path / "a.libsvm", rows=4096, features=8,
+                        seed=3)
+    drains0 = telemetry.counter("device_abort_drains_total").value
+    it = di.DeviceRowBlockIter(path, batch_rows=64, prefetch=2,
+                               device="cpu")
+    got = iter(it)
+    next(got)  # pipeline live: staging and transfer threads hold batches
+    budget_ms = 2000
+    t0 = time.monotonic()
+    it.abort_drain("test-abort")
+    took_ms = (time.monotonic() - t0) * 1000.0
+    assert took_ms < budget_ms + 500, took_ms
+    assert it._thread is None and it._xfer_thread is None
+    assert telemetry.counter(
+        "device_abort_drains_total").value == drains0 + 1
+    it.close()
+    it.abort_drain("double")
+    assert telemetry.counter(
+        "device_abort_drains_total").value == drains0 + 2
+
+
+def _mesh(size):
+    return DataMesh(group=None, rank=0, size=size,
+                    device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("layout", ["csr", "dense"])
+def test_global_batch_splits_over_the_mesh(tmp_path, layout):
+    """With ``mesh=``, ``batch_rows`` is the global batch: a rank's
+    batches hold ``batch_rows / mesh.size`` rows, bit for bit the batches
+    of the iterator without a mesh at that size, and the resume identity
+    keeps the global size."""
+    path = write_libsvm(tmp_path / "g.libsvm", rows=300, seed=12)
+    with di.DeviceRowBlockIter(path, batch_rows=128, mesh=_mesh(4),
+                               layout=layout, min_nnz_bucket=64,
+                               device="cpu", prefetch=0) as it:
+        got = [{k: v.clone() for k, v in b.tree().items()} for b in it]
+        assert it.state()["batch_rows"] == 128
+    with di.DeviceRowBlockIter(path, batch_rows=32, layout=layout,
+                               min_nnz_bucket=64, device="cpu",
+                               prefetch=0) as it:
+        want = [{k: v.clone() for k, v in b.tree().items()} for b in it]
+    assert len(got) == len(want) == 10
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in g:
+            assert bits(g[k]) == bits(w[k]), k
+
+
+def test_global_batch_refused_when_it_does_not_divide(tmp_path):
+    path = write_libsvm(tmp_path / "r.libsvm", rows=10)
+    with pytest.raises(DMLCError,
+                       match="batch_rows=100 must divide by shards=3"):
+        di.DeviceRowBlockIter(path, batch_rows=100, mesh=_mesh(3),
+                              device="cpu")

@@ -18,6 +18,7 @@ from dmlc_core_tpu.models.fm import FMLearner as RefFM, FMParams as RefParams
 from dmlc_core_tpu.models.fm import _fm_margin_csr as ref_margin_csr
 from dmlc_core_tpu.models.fm import _fm_margin_dense as ref_margin_dense
 from dmlc_core_tpu.tpu.device_iter import DeviceRowBlockIter as RefIter
+from tests.torch_reference_native import reference_native  # noqa: F401
 
 from dmlc_core_tpu_torch.device.device_iter import DeviceRowBlockIter
 from dmlc_core_tpu_torch.models.convert import (fm_params_from_numpy,

@@ -15,6 +15,7 @@ import torch
 
 from dmlc_core_tpu.io import convert as ref_convert
 from dmlc_core_tpu.tpu import device_iter as ref_di
+from tests.torch_reference_native import reference_native  # noqa: F401
 
 from dmlc_core_tpu_torch.base import DMLCError
 from dmlc_core_tpu_torch.device import device_iter as di

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from dmlc_core_tpu.models.linear import LinearLearner as RefLearner
 from dmlc_core_tpu.models.linear import LinearParams as RefParams
 from dmlc_core_tpu.tpu.device_iter import DeviceRowBlockIter as RefIter
+from tests.torch_reference_native import reference_native  # noqa: F401
 
 from dmlc_core_tpu_torch.base import DMLCError
 from dmlc_core_tpu_torch.device.device_iter import (DeviceRowBlockIter,

@@ -22,6 +22,7 @@ from dmlc_core_tpu.models.linear import LinearLearner as RefLinear
 from dmlc_core_tpu.models.linear import LinearParams as RefLinP
 from dmlc_core_tpu.ops.ranking import pairwise_logistic_loss as ref_loss
 from dmlc_core_tpu.tpu.device_iter import DeviceRowBlockIter as RefIter
+from tests.torch_reference_native import reference_native  # noqa: F401
 
 from dmlc_core_tpu_torch.device.device_iter import (DeviceRowBlockIter,
                                                     unpack_tree)

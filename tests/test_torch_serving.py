@@ -36,6 +36,7 @@ import torch
 from dmlc_core_tpu import telemetry as ref_telemetry
 from dmlc_core_tpu.serving import batching as ref_batching
 from dmlc_core_tpu.serving.model import ScoringModel as RefModel
+from tests.torch_reference_native import reference_native  # noqa: F401
 from tests.serving_util import (AsyncReq, Client, ForwardGate,
                                 expect_scores, raw_http, sigmoid)
 

@@ -8,8 +8,16 @@ devices its step applies D times the learning rate (ROADMAP.md section 3),
 which the port's one-device step does not reproduce. Train, checkpoint and
 ``--resume`` go on from the right epoch, and a checkpoint taken inside an
 epoch resumes to the losses of the run without the interruption.
+
+In a 2-rank gloo world (real processes under the launcher env protocol,
+each world with a 120-s timeout) every rank prints the same lines,
+``--checkpoint`` writes a committed job checkpoint (a part per rank, the
+ranks' parameters bit-identical), and ``--resume`` from a job checkpoint
+committed inside an epoch gives the uninterrupted world's lines bit for
+bit. A launcher env that names a part without a world is refused.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -17,6 +25,9 @@ import sys
 import numpy as np
 import pytest
 import torch
+
+from tests.torch_reference_native import reference_native  # noqa: F401
+from tests.torch_world_worker import run_world, worker_argv
 
 from dmlc_core_tpu_torch.base import DMLCError
 from dmlc_core_tpu_torch import train as cli
@@ -38,11 +49,9 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture
-def data(tmp_path):
+def _write_data(path):
     # test_example_train.py's file
     rng = np.random.default_rng(2)
-    path = tmp_path / "d.libsvm"
     with open(path, "w") as f:
         for i in range(1200):
             x0 = rng.uniform(-1, 1)
@@ -50,6 +59,11 @@ def data(tmp_path):
                 f"{j}:{rng.uniform(-1, 1):.4f}" for j in range(1, 5)])
             f.write(f"{1 if x0 > 0 else 0} {feats}\n")
     return str(path)
+
+
+@pytest.fixture
+def data(tmp_path):
+    return _write_data(tmp_path / "d.libsvm")
 
 
 def _losses(out):
@@ -86,6 +100,7 @@ def test_cli_checkpoint_and_resume(data, tmp_path, capsys):
               "--device", "cpu"])
     first = capsys.readouterr().out
     assert os.path.exists(ck)
+    assert not os.path.exists(ck + ".commit")  # one process: a plain file
     cli.main([data, "--epochs", "3", *COMMON, "--resume", ck,
               "--device", "cpu"])
     resumed = capsys.readouterr().out.splitlines()
@@ -132,20 +147,96 @@ def test_cli_mid_epoch_resume_matches_uninterrupted(data, tmp_path,
 
 @pytest.mark.parametrize("extra_args,env,match", [
     (["--model", "fm"], {"DMLC_TASK_ID": "1", "DMLC_NUM_WORKER": "2"},
-     "Multi-process data parallelism"),
+     "part 1 of 2, but this process's world has 1"),
     (["--objective", "pairwise"], {"JAX_COORDINATOR_ADDRESS": "h:1"},
-     "Multi-process data parallelism"),
+     "JAX_NUM_PROCESSES is not"),
     ([], {"DMLC_TASK_ID": "0", "DMLC_NUM_WORKER": "2"},
-     "Multi-process data parallelism"),
-    ([], {"DMLC_COORDINATOR_ADDRESS": "localhost:1"},
-     "Multi-process data parallelism"),
-])
+     "part 0 of 2, but this process's world has 1"),
+    ([], {"DMLC_COORDINATOR_ADDRESS": "localhost:1", "DMLC_NUM_WORKER": "2",
+          "DMLC_TASK_ID": "5"}, "DMLC_TASK_ID=5 out of range"),
+], ids=[f"extra_args{i}-env{i}-Multi-process data parallelism"
+        for i in range(4)])
 def test_cli_refuses_unported_lanes(data, monkeypatch, extra_args, env,
                                     match):
+    """A launcher env that names a part of a world the process is not in
+    (no coordinator), or a world it cannot join, is refused before any
+    training: a worker must never train its part alone."""
+    for k in ("JAX_COORDINATOR_ADDRESS", "DMLC_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     with pytest.raises(DMLCError, match=match):
         cli.main([data, *extra_args, "--device", "cpu"])
+
+
+WORLD = ["--epochs", "2", *COMMON, "--device", "cpu"]
+
+
+def _cli_world(tmp_path, args):
+    """The CLI in a 2-rank gloo world; both ranks' stdout lines."""
+    outs = run_world(lambda r: [sys.executable, "-m",
+                                "dmlc_core_tpu_torch.train", *args],
+                     cwd=str(tmp_path))
+    return [o[0].splitlines() for o in outs]
+
+
+@pytest.fixture(scope="module")
+def world_run(tmp_path_factory):
+    """The uninterrupted 2-rank world with --checkpoint: its data file,
+    lines and job checkpoint's base."""
+    d = tmp_path_factory.mktemp("world")
+    data = _write_data(d / "d.libsvm")
+    base = str(d / "job.ckpt")
+    lines = _cli_world(d, [data, *WORLD, "--checkpoint", base])
+    return data, lines, base
+
+
+def test_cli_world_lines_and_job_checkpoint(world_run):
+    _, (l0, l1), base = world_run
+    assert l0 == l1 and len(l0) == 2, (l0, l1)
+    assert [ln.split(":")[0] for ln in l0] == ["epoch 0", "epoch 1"]
+    # 600 rows a part in batches of 256 / 2 ranks
+    assert all("over 5 batches" in ln for ln in l0)
+    with open(base + ".commit") as f:
+        marker = json.load(f)
+    assert marker == {"schema": 1, "step": 2, "npart": 2,
+                      "parts": [f"{base}.step2.part{p}of2"
+                                for p in range(2)]}
+    from dmlc_core_tpu_torch.utils.checkpoint import restore_checkpoint
+    for step in (1, 2):
+        parts = [restore_checkpoint(f"{base}.step{step}.part{p}of2")
+                 for p in range(2)]
+        (f0, s0, e0), (f1, s1, e1) = parts
+        assert s0 == s1 == step
+        # the replicas hold the same bits; each part its own position
+        assert {k: v.tobytes() for k, v in f0.items()} == \
+            {k: v.tobytes() for k, v in f1.items()}
+        assert [(e["part"], e["npart"], e["batch_rows"], e["epoch"],
+                 e["batches_consumed"]) for e in (e0, e1)] == \
+            [(str(p), "2", "256", str(step), "0") for p in range(2)]
+
+
+def test_cli_world_mid_epoch_resume_matches_uninterrupted(tmp_path,
+                                                          world_run):
+    data, (whole, _), _ = world_run
+    k = 2
+    mid = str(tmp_path / "mid.ckpt")
+    spec = tmp_path / "mid.json"
+    spec.write_text(json.dumps({"data": data, "features": 5, "lr": 0.1,
+                                "batch_rows": 256, "k": k, "base": mid}))
+    outs = [tmp_path / f"mid{r}.json" for r in range(2)]
+    run_world(lambda r: worker_argv("ckpt_mid", spec, outs[r]))
+    losses = json.loads(outs[0].read_text())["losses"]
+    assert losses == json.loads(outs[1].read_text())["losses"]
+    # the worker's epoch is the CLI's epoch 0, step for step
+    assert whole[0] == (f"epoch 0: mean loss {float(np.mean(losses)):.6f} "
+                        f"over {len(losses)} batches")
+    r0, r1 = _cli_world(tmp_path, [data, *WORLD, "--resume", mid])
+    assert r0 == r1
+    assert r0[0] == (f"epoch 0: mean loss "
+                     f"{float(np.mean(losses[k:])):.6f} over "
+                     f"{len(losses) - k} batches")
+    assert r0[1] == whole[1]
 
 
 def _fm_start(tmp_path, features, k=4):
