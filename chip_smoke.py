@@ -13,7 +13,12 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  ``dmlc_core_tpu_torch/_build/``; seconds each and ptxas info.
    ``data``    — the HIGGS-shaped libsvm file (28 features, 524,288 rows)
                  and the port's converter's ``.crec`` and bf16 ``.drec``
-                 files of it, as ``bench.py`` converts HIGGS.
+                 files of it, as ``bench.py`` converts HIGGS; the text
+                 file through ``data.RowBlockIter.create(cache_dir=...)``
+                 for two epochs (a parse that tees the shard cache, then
+                 its replay, equal bit for bit), a ``RowBlockContainer``
+                 save/load round trip, host rows/s of each epoch and
+                 ``pipeline_stats()``.
 3. ``kernels`` — every hand-written kernel against its plain PyTorch version
                  on the card: the bench probe shape, the training shape
                  (also with its nonzeros permuted), a real ``.crec`` batch
@@ -36,6 +41,18 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  just after. The loss trajectory and final weights must
                  match the segment-sum path on the card and the port's CPU
                  run (plain versions) at rtol 1e-5 (atol 1e-7 on weights).
+   ``telemetry`` — the same epoch again on a learner of its own under
+                 ``torch_profiler_capture`` (``DMLC_TORCH_PROFILE``): the
+                 capture ran, the trace lines up with the ``train.step``
+                 spans through the clock anchors, it holds a launch of
+                 the kernel a step, the losses equal ``train``'s at rtol
+                 1e-5. It prints the stall verdict and occupancy, the
+                 overlap ratio, the card's busy share over the epoch's
+                 wall window (merged kernels, memcpys and memsets), the
+                 top device operations with launches, the longest idle
+                 gaps with the spans covering them, and the exposition's
+                 ``stall_verdict_code`` / ``device_overlap_ratio``, which
+                 must equal the values computed in the phase.
 5. ``serve``   — the rest of the main path: the trained parameters through
                  ``save_checkpoint``/``restore_checkpoint`` (back on the
                  card bit for bit) and ``save_model``; an in-process
@@ -92,7 +109,12 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  after epoch 1, equal to the uninterrupted epoch-1 line at
                  rtol 1e-5. Per world: step median, rows/s, bytes reduced
                  a step, a bare all_reduce of that buffer (median of 20,
-                 host clock) and the backend. One card: the 2-rank worlds
+                 host clock) and the backend. In (b) every rank ships its
+                 ``telemetry.rank_export()`` through ``allgather_bytes``;
+                 rank 0 renders ``cluster_prometheus_text``, holds every
+                 ``job:`` counter to the sum of the ranks' counters and
+                 prints the ``straggler_attribution`` verdict over the
+                 ranks' step durations. One card: the 2-rank worlds
                  measure the code path, not NCCL between cards.
 
 Each configuration keeps its published widths; row counts are cut, and
@@ -109,6 +131,7 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import http.client
+import io
 import json
 import os
 import random
@@ -127,6 +150,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from dmlc_core_tpu_torch import telemetry  # noqa: E402
+from dmlc_core_tpu_torch.data import (RowBlockContainer,  # noqa: E402
+                                      RowBlockIter)
 from dmlc_core_tpu_torch.device import device_iter  # noqa: E402
 from dmlc_core_tpu_torch.io import convert, native  # noqa: E402
 from dmlc_core_tpu_torch.io.native import NativeParser  # noqa: E402
@@ -142,6 +167,7 @@ from dmlc_core_tpu_torch.serving.model import (ScoringModel,  # noqa: E402
 from dmlc_core_tpu_torch.serving.server import ScoringServer  # noqa: E402
 from dmlc_core_tpu_torch.utils.checkpoint import (  # noqa: E402
     restore_checkpoint, save_checkpoint)
+from dmlc_core_tpu_torch.utils.timer import trace_span  # noqa: E402
 
 # H100 SXM data sheet peaks (the bound's denominators)
 HBM_BYTES_PER_S = 3.35e12
@@ -581,8 +607,11 @@ def train(uri: str, margin_path: str, device: str, batch_rows: int,
           max_steps: "int | None" = None) -> dict:
     """One epoch of the port's main path (or its first ``max_steps``
     steps); per-step losses and timings. ``seconds`` spans the epoch from
-    the iterator's start; ``steady_rows_per_s`` counts steps 2..N only,
-    from the end of step 1 to the end of step N."""
+    the iterator's start (``t0``, ``perf_counter`` seconds) to the last
+    loss read back (``t1``); ``steady_rows_per_s`` counts steps 2..N
+    only, from the end of step 1 to the end of step N. Each step, loss
+    read back included, is a ``train.step`` telemetry span and a
+    ``record_function`` row of a running profiler capture."""
     learner = LinearLearner(FEATURES, margin_path=margin_path, device=device)
     params = learner.init()
     losses, step_s, step_end, step_rows = [], [], [], []
@@ -594,20 +623,22 @@ def train(uri: str, margin_path: str, device: str, batch_rows: int,
                 require(t.device.type == device, "batch leaf off device",
                         leaf=k, device=str(t.device))
             ts = time.perf_counter()
-            params, loss = learner.step(params, batch)
-            losses.append(float(loss))  # synchronizes the step
+            with telemetry.span("train.step"), \
+                    trace_span("train.step", profiler=True):
+                params, loss = learner.step(params, batch)
+                losses.append(float(loss))  # synchronizes the step
             step_end.append(time.perf_counter())
             step_s.append(step_end[-1] - ts)
             step_rows.append(batch.total_rows)
             if max_steps is not None and len(losses) == max_steps:
                 break
-    total = time.perf_counter() - t0
+    t1 = time.perf_counter()
     steady = (sum(step_rows[1:]) / (step_end[-1] - step_end[0])
               if len(step_end) > 1 else None)
     return {"losses": losses, "w": params.w.cpu().numpy(),
             "b": float(params.b), "step_s": step_s, "rows": sum(step_rows),
-            "seconds": total, "steady_rows_per_s": steady,
-            "params": params}
+            "seconds": t1 - t0, "t0": t0, "t1": t1,
+            "steady_rows_per_s": steady, "params": params}
 
 
 def compare(a: dict, b: dict, label: str) -> dict:
@@ -722,6 +753,217 @@ def train_phase(uri: str, device: str = "cuda", rows: int = TRAIN_ROWS,
            "histograms_us": hists, "counters": counters, "gaps": gaps}
     emit(out)
     return out, main["params"]
+
+
+# -- phase 4b: the telemetry plane and the card's own timeline ---------------
+KERNEL_SYMBOL = "csr_to_dense_f32_kernel"  # csrc/csr_to_dense.cu
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+GAP_SPANS = ("device.stage", "device.put", "device.wait", "train.step")
+TOP_OPS = 8
+TOP_GAPS = 5
+
+
+def trace_clock_shift_us(trace: dict, anchors: dict) -> "tuple[float, str]":
+    """The microseconds to add to a Chrome-trace ``ts`` (plus the file's
+    ``baseTimeNanoseconds``) to land on the ``perf_counter`` clock of the
+    telemetry spans, and the clock the profiler wrote: ``wall`` when the
+    trace's times fall inside the capture's wall-clock anchors, ``mono``
+    when they fall inside its monotonic ones (``perf_counter`` is
+    CLOCK_MONOTONIC on Linux)."""
+    base = trace.get("baseTimeNanoseconds", 0) / 1e3
+    times = [e["ts"] + base for e in trace["traceEvents"]
+             if e.get("ph") == "X"]
+    require(bool(times), "profiler trace holds no complete event")
+    lo, hi = min(times), max(times)
+    slack = 60e6
+    a, b = anchors["start"], anchors["stop"]
+    if a["wall_us"] - slack <= lo and hi <= b["wall_us"] + slack:
+        return base - (a["wall_us"] - a["perf_us"]), "wall"
+    if a["perf_us"] - slack <= lo and hi <= b["perf_us"] + slack:
+        return base, "mono"
+    require(False, "profiler trace on an unknown clock", first_us=lo,
+            anchors=anchors)
+
+
+def merge_intervals(iv: list) -> list:
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def device_timeline(trace: dict, shift_us: float, t0_us: float,
+                    t1_us: float, spans: list) -> dict:
+    """The card's side of the window [t0_us, t1_us] (``perf_counter``
+    microseconds): the busy share (merged kernels, memcpys and memsets
+    over the window), the top device operations by total time with their
+    launches, and the longest idle gaps, each with the telemetry spans
+    that cover it."""
+    ops, busy = {}, []
+    for e in trace["traceEvents"]:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
+            continue
+        a = e["ts"] + shift_us
+        b = a + e.get("dur", 0)
+        rec = ops.setdefault(e["name"], {"cat": e["cat"], "launches": 0,
+                                         "total_us": 0.0})
+        rec["launches"] += 1
+        rec["total_us"] += b - a
+        lo, hi = max(a, t0_us), min(b, t1_us)
+        if hi > lo:
+            busy.append((lo, hi))
+    merged = merge_intervals(busy)
+    busy_us = sum(b - a for a, b in merged)
+    edges = [t0_us] + [x for iv in merged for x in iv] + [t1_us]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
+                   for i in range(0, len(edges), 2)), reverse=True)
+    top_gaps = []
+    for dur, a, b in gaps[:TOP_GAPS]:
+        cover = {}
+        for sp in spans:
+            if sp["name"] not in GAP_SPANS:
+                continue
+            ov = min(b, sp["ts"] + sp["dur"]) - max(a, sp["ts"])
+            if ov > 0:
+                cover[sp["name"]] = cover.get(sp["name"], 0.0) + ov
+        top_gaps.append({"us": dur, "from_epoch_start_us": a - t0_us,
+                         "covered_by_us": dict(sorted(
+                             cover.items(), key=lambda kv: -kv[1]))})
+    top = sorted(ops.items(), key=lambda kv: -kv[1]["total_us"])[:TOP_OPS]
+    return {"window_us": t1_us - t0_us, "busy_us": busy_us,
+            "busy_share": busy_us / (t1_us - t0_us),
+            "device_events": sum(o["launches"] for o in ops.values()),
+            "top_ops": [{"name": k, **v} for k, v in top],
+            "idle_gaps": top_gaps,
+            "kernel_launches": sum(o["launches"] for k, o in ops.items()
+                                   if KERNEL_SYMBOL in k)}
+
+
+def exposition_value(text: str, name: str) -> float:
+    """The value of the unlabeled sample ``name`` in exposition text."""
+    (line,) = [ln for ln in text.splitlines() if ln.startswith(name + " ")]
+    return float(line.split()[1])
+
+
+def telemetry_phase(uri: str, train_losses: list, workdir: str,
+                    device: str = "cuda", rows: int = TRAIN_ROWS,
+                    batch_rows: int = BATCH_ROWS) -> dict:
+    """The ``train`` phase's epoch again, on a learner of its own, under
+    ``torch_profiler_capture``: the stall verdict and occupancy, the
+    overlap ratio, the card's busy share over the epoch's wall window,
+    the top device operations and the longest idle gaps with the spans
+    that cover them, and the exposition's derived gauges against the
+    values computed here."""
+    steps = -(-rows // batch_rows)
+    prof_dir = os.path.join(workdir, "torch_profile")
+    os.environ["DCT_CSR_TO_DENSE"] = "pallas"
+    os.environ["DMLC_TORCH_PROFILE"] = prof_dir
+    try:
+        telemetry.reset()
+        hk.reset_launch_counts()
+        with device_iter.torch_profiler_capture(device) as captured:
+            run = train(uri, "dense", device, batch_rows)
+    finally:
+        del os.environ["DMLC_TORCH_PROFILE"]
+    launches = {k: fn.launches for k, fn in hk.KERNELS.items()}
+    require(captured, "the profiler capture did not run")
+    pid = os.getpid()
+    with open(os.path.join(prof_dir, f"torch_trace_{pid}.json")) as f:
+        trace = json.load(f)
+    with open(os.path.join(prof_dir, f"dmlc_anchor_{pid}.json")) as f:
+        anchors = json.load(f)
+    shift, clock = trace_clock_shift_us(trace, anchors)
+    spans = telemetry.spans()
+    # the step spans against their record_function rows on one clock
+    rows_ts = sorted(e["ts"] + shift for e in trace["traceEvents"]
+                     if e.get("ph") == "X" and e.get("name") == "train.step"
+                     and e.get("cat") == "user_annotation")
+    span_ts = sorted(s["ts"] for s in spans if s["name"] == "train.step")
+    require(len(rows_ts) == len(span_ts) == steps, "train.step rows",
+            rows=len(rows_ts), spans=len(span_ts))
+    align = max(abs(a - b) for a, b in zip(rows_ts, span_ts))
+    require(align < 2000.0, "trace and spans misaligned", max_us=align)
+    timeline = device_timeline(trace, shift, run["t0"] * 1e6,
+                               run["t1"] * 1e6, spans)
+    if device == "cuda":
+        require(timeline["kernel_launches"] == steps
+                and launches["csr_to_dense"] == steps,
+                "kernel launches in the trace", steps=steps,
+                trace=timeline["kernel_launches"], counted=launches)
+    require(np.allclose(run["losses"], train_losses, rtol=1e-5, atol=0),
+            "telemetry epoch's losses differ from train's",
+            got=run["losses"], want=train_losses)
+    snap = telemetry.snapshot()
+    att = telemetry.stall_attribution(snap)
+    ratio = telemetry.device_overlap_ratio()
+    text = telemetry.prometheus_text(snap)
+    code = exposition_value(text, "stall_verdict_code")
+    shown_ratio = exposition_value(text, "device_overlap_ratio")
+    require(code == telemetry.VERDICT_CODES[att["verdict"]]
+            and shown_ratio == (-1.0 if ratio is None else ratio),
+            "exposition's derived gauges", code=code, ratio=shown_ratio,
+            verdict=att["verdict"], computed_ratio=ratio)
+    out = {"phase": "telemetry", "device": device, "rows": rows,
+           "batch_rows": batch_rows, "steps": steps,
+           "trace_clock": clock, "alignment_max_us": align,
+           "epoch_s": run["seconds"], "rows_per_s": rows / run["seconds"],
+           "stall_verdict": att["verdict"], "occupancy": att["occupancy"],
+           "stage_us": att["stage_us"], "device_overlap_ratio": ratio,
+           "device_busy_share": timeline["busy_share"],
+           "timeline": timeline, "launches": launches,
+           "exposition": {"stall_verdict_code": code,
+                          "device_overlap_ratio": shown_ratio},
+           "trace_bytes": os.path.getsize(os.path.join(
+               prof_dir, f"torch_trace_{pid}.json"))}
+    emit(out)
+    return out
+
+
+# -- the host data library: RowBlockIter and the shard cache -----------------
+def container_bytes(c) -> bytes:
+    buf = io.BytesIO()
+    c.save(buf)
+    return buf.getvalue()
+
+
+def rowblock_epochs(uri: str, cache_dir: str) -> dict:
+    """The text file through ``RowBlockIter.create(cache_dir=...)`` for two
+    epochs, a parse that tees the shard cache and its replay: the blocks
+    equal bit for bit, a ``RowBlockContainer`` save/load round trip, host
+    rows/s of each epoch and the parser's ``pipeline_stats()``."""
+    def cache_counters():
+        return {c["name"]: c["value"]
+                for c in native.native_telemetry_snapshot()["counters"]
+                if c["name"].startswith("cache_")}
+
+    epochs = []
+    with RowBlockIter.create(uri, cache_dir=cache_dir) as it:
+        for _ in range(2):
+            before = cache_counters()
+            t0 = time.perf_counter()
+            merged = RowBlockContainer.from_blocks(list(it))
+            secs = time.perf_counter() - t0
+            after = cache_counters()
+            epochs.append({"container": merged, "seconds": secs,
+                           "rows_per_s": merged.size / secs,
+                           "pipeline_stats": it.pipeline_stats(),
+                           "cache": {k: after[k] - before.get(k, 0)
+                                     for k in after}})
+    first, second = (e.pop("container") for e in epochs)
+    same = container_bytes(first) == container_bytes(second)
+    require(same and first.size > 0, "shard-cache replay differs from the "
+            "parse", rows=[first.size, second.size])
+    require(epochs[1]["cache"].get("cache_hits_total", 0) >= 1,
+            "epoch 2 did not replay the shard cache", **epochs[1]["cache"])
+    back = RowBlockContainer()
+    require(back.load(io.BytesIO(container_bytes(first)))
+            and container_bytes(back) == container_bytes(first),
+            "RowBlockContainer save/load round trip")
+    return {"rows": first.size, "nnz": first.nnz, "epochs": epochs,
+            "replay_bit_equal": same, "save_load_bit_equal": True}
 
 
 # -- phase 5: checkpoint and serving -----------------------------------------
@@ -1764,6 +2006,8 @@ def dp_worker(spec_path: str, out_path: str) -> int:
                "device": str(mesh.device)}
         for task in spec["tasks"]:
             out[task["name"]] = dp_task(task, mesh, backend)
+        if spec.get("cluster"):
+            out["cluster"] = cluster_merge(out[spec["tasks"][0]["name"]])
     finally:
         distributed.shutdown()
     with open(out_path, "w") as f:
@@ -1771,13 +2015,77 @@ def dp_worker(spec_path: str, out_path: str) -> int:
     return 0
 
 
+def prometheus_samples(text: str, prefix: str = "") -> dict:
+    """{(name, labels text): value} of the counter samples in exposition
+    text whose names start with ``prefix``."""
+    kinds, out = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            kinds[name] = kind
+        elif line and not line.startswith("#") and line.startswith(prefix):
+            series, value = line.rsplit(" ", 1)
+            name, _, labels = series.partition("{")
+            if kinds.get(name) == "counter":
+                out[(name, labels.rstrip("}"))] = float(value)
+    return out
+
+
+def labels_text(labels: dict) -> str:
+    """Labels as the exposition writes them (sorted, escaped)."""
+    return ",".join('{}="{}"'.format(k, str(v).replace("\\", "\\\\")
+                                     .replace('"', '\\"')
+                                     .replace("\n", "\\n"))
+                    for k, v in sorted(labels.items()))
+
+
+def cluster_check(per_rank: dict, step_us: dict) -> dict:
+    """Rank 0's side of the cluster half: the job-wide exposition of the
+    ranks' ``rank_export`` documents, every ``job:`` counter against the
+    sum of the ranks' own counters, and the straggler verdict over the
+    ranks' step durations (microseconds)."""
+    text = telemetry.cluster_prometheus_text(per_rank)
+    job = prometheus_samples(text, "job:")
+    want = {}
+    for doc in per_rank.values():
+        for c in doc["metrics"]["counters"]:
+            key = ("job:" + c["name"], labels_text(c["labels"]))
+            want[key] = want.get(key, 0) + c["value"]
+    bad = {f"{k[0]}{{{k[1]}}}": [job.get(k), v] for k, v in want.items()
+           if job.get(k) != float(v)}
+    verdict = telemetry.straggler_attribution(step_us)
+    return {"ranks": sorted(per_rank), "job_counters": len(job),
+            "job_counters_equal_rank_sums": not bad and len(job) == len(want),
+            "mismatches": bad, "exposition_bytes": len(text),
+            "straggler": verdict}
+
+
+def cluster_merge(task: dict) -> dict:
+    """Every rank ships its ``rank_export()`` and its step durations through
+    ``allgather_bytes``; rank 0 checks the merge (:func:`cluster_check`),
+    the other ranks return an empty record."""
+    from dmlc_core_tpu_torch.parallel import distributed
+    mine = {"export": telemetry.rank_export(),
+            "step_us": [1e6 * s for s in task["step_s"]]}
+    blobs = distributed.allgather_bytes(json.dumps(mine).encode())
+    if distributed.rank() != 0:
+        return {}
+    docs = [json.loads(b) for b in blobs]
+    return cluster_check({r: d["export"] for r, d in enumerate(docs)},
+                         {r: d["step_us"] for r, d in enumerate(docs)})
+
+
 def run_dp_world(workdir: str, name: str, size: int, backend: str,
-                 device: str, tasks: list) -> "tuple[list, float]":
+                 device: str, tasks: list, cluster: bool = False
+                 ) -> "tuple[list, float]":
     """A world of ``size`` ``dp-worker`` ranks; their results and the
-    world's wall-clock seconds, process start-up included."""
+    world's wall-clock seconds, process start-up included. With
+    ``cluster`` the ranks also merge their telemetry
+    (:func:`cluster_merge`)."""
     spec = os.path.join(workdir, f"dp_{name}.json")
     with open(spec, "w") as f:
-        json.dump({"backend": backend, "device": device, "tasks": tasks}, f)
+        json.dump({"backend": backend, "device": device, "tasks": tasks,
+                   "cluster": cluster}, f)
     outs = [os.path.join(workdir, f"dp_{name}_rank{r}.out.json")
             for r in range(size)]
     script = os.path.abspath(__file__)
@@ -1877,7 +2185,13 @@ def dp_phase(workdir: str, data: dict, main_run: dict,
                "features": CRITEO_FEATURES, "batch_rows": batch_rows,
                "max_steps": DP_FM_STEPS, "save": fm_save}
     res, secs = run_dp_world(workdir, "two", DP_RANKS, "gloo", device,
-                             [higgs, fm_task])
+                             [higgs, fm_task], cluster=True)
+    cluster = res[0]["cluster"]
+    require(cluster["job_counters_equal_rank_sums"]
+            and cluster["job_counters"] > 0
+            and cluster["ranks"] == list(range(DP_RANKS)),
+            "cluster exposition: job counters against the rank sums",
+            **cluster)
     local = batch_rows // DP_RANKS
     union = os.path.join(workdir, "higgs_union_")
     counts, files = write_unions(data["text"], union, local)
@@ -1972,7 +2286,8 @@ def dp_phase(workdir: str, data: dict, main_run: dict,
     launches = sum(sum(worlds[w]["launches_per_rank"])
                    for w in ("nccl_1", "gloo_2"))
     out = {"phase": "dp", "device": device, "rows": rows,
-           "batch_rows": batch_rows, "card": "one card: the 2-rank worlds "
+           "batch_rows": batch_rows, "cluster": cluster,
+           "card": "one card: the 2-rank worlds "
            "share it over gloo and measure the code path, not NCCL "
            "between cards",
            "reduced": {"nccl_world_ranks": "1 (the machine has one card)",
@@ -2014,9 +2329,11 @@ def main() -> int:
         data = write_higgs_files(workdir)
         emit({"phase": "data", **{k: data[k] for k in (
             "rows", "bytes", "text_write_s", "crec_convert_s",
-            "drec_convert_s")}})
+            "drec_convert_s")}, "rowblock_iter": rowblock_epochs(
+                data["text"], os.path.join(workdir, "cache"))})
         cases = kernels_phase([crec_kernel_case(data["crec"])])
         run, params = train_phase(data["text"])
+        tel = telemetry_phase(data["text"], run["losses"], workdir)
         serve_phase(workdir, params)
         lanes = lanes_phase(data, {"losses": run["losses"],
                                    "w": params.w.cpu().numpy(),
@@ -2032,6 +2349,7 @@ def main() -> int:
         "replaces": "dmlc_core_tpu/ops/pallas_kernels.py:58",
         # the paths that launch it, each counted on its own run
         "launches": (run["launches"]["csr_to_dense"]
+                     + tel["launches"]["csr_to_dense"]
                      + lanes["launches"]["csr_to_dense"]
                      + dp["launches"]["csr_to_dense"]),
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),

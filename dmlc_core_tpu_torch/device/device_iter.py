@@ -42,10 +42,19 @@ tensors were allocated on the side stream. On the CPU (``device="cpu"``)
 ``torch.from_numpy`` aliases the staging buffer instead of copying; that
 is counted in ``device_zero_copy_batches_total``, and such buffers are
 never recycled, because the consumer's tensors still read them.
+
+:func:`torch_profiler_capture` is the counterpart of the reference's
+``jax_profiler_capture``: under ``DMLC_TORCH_PROFILE=<dir>`` it records
+the body with ``torch.profiler`` (the card's kernels, copies and memsets
+beside the host's rows) and writes the clock anchors that put that trace
+on the telemetry spans' timeline.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import queue
 import threading
 import time
@@ -67,7 +76,7 @@ from dmlc_core_tpu_torch.tracker.wire import env_int
 
 __all__ = ["PaddedBatch", "DenseBatch", "DeviceRowBlockIter", "HostBatcher",
            "NativeHostBatcher", "CsrRecHostBatcher", "DenseRecHostBatcher",
-           "unpack_tree", "unpack_shard"]
+           "unpack_tree", "unpack_shard", "torch_profiler_capture"]
 
 _lane_metrics = None
 
@@ -91,6 +100,64 @@ def _get_lane_metrics():
             "zc_batches": telemetry.counter("device_zero_copy_batches_total"),
         }
     return _lane_metrics
+
+
+@contextlib.contextmanager
+def torch_profiler_capture(device=None):
+    """Optional ``torch.profiler`` capture of the body, anchored to the
+    telemetry timeline. With ``DMLC_TORCH_PROFILE=<dir>`` set, the body
+    runs under ``torch.profiler.profile`` with CPU activity, plus CUDA
+    activity when the card is in use (``device`` is a CUDA device, or
+    None with CUDA available); the Chrome trace goes to
+    ``<dir>/torch_trace_<pid>.json`` and this process's (wall, monotonic)
+    clock-anchor pairs at start and stop to
+    ``<dir>/dmlc_anchor_<pid>.json`` as ``{"pid", "start", "stop"}`` — the
+    anchors ``telemetry.trace_json`` shifts spans by, so the profiler's
+    rows and the spans land on one clock. A ``torch-profile`` event
+    records the directory. Yields True while a capture runs, False when
+    the variable is unset or the profiler refused (every failure of the
+    capture is swallowed: profiling must not sink the lane, and the
+    caller sees False)."""
+    out_dir = os.environ.get("DMLC_TORCH_PROFILE")
+    if not out_dir:
+        yield False
+        return
+    import torch.profiler as tp
+    cuda = (torch.cuda.is_available() if device is None
+            else torch.device(device).type == "cuda")
+    activities = [tp.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(tp.ProfilerActivity.CUDA)
+    anchors = {"pid": os.getpid(), "start": telemetry.clock_anchor()}
+    prof = None
+    try:
+        os.makedirs(out_dir, exist_ok=True)
+        prof = tp.profile(activities=activities)
+        prof.__enter__()
+    except Exception:
+        prof = None
+    try:
+        yield prof is not None
+    finally:
+        if prof is not None:
+            try:
+                if cuda:
+                    torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                prof.export_chrome_trace(os.path.join(
+                    out_dir, f"torch_trace_{os.getpid()}.json"))
+            except Exception:
+                pass
+        anchors["stop"] = telemetry.clock_anchor()
+        try:
+            with open(os.path.join(out_dir,
+                                   f"dmlc_anchor_{os.getpid()}.json"),
+                      "w") as f:
+                json.dump(anchors, f)
+            telemetry.emit_event("torch-profile", dir=out_dir,
+                                 started=prof is not None)
+        except Exception:
+            pass
 
 
 def _dense_dtype_of(d) -> np.dtype:

@@ -6,7 +6,7 @@ The port never loads the JAX package's library: it builds ``cpp/`` into
 the package's build lock, and rebuilds only when a ``cpp/src`` file is
 newer than the library. The binding covers what the port calls: the
 threaded text parser (:class:`NativeParser`, 32- or 64-bit feature
-ids), the fused padded-batch assembler (:class:`NativeBatcher`), the
+ids, its pipeline knobs and counters, and the shard cache), the fused padded-batch assembler (:class:`NativeBatcher`), the
 binary lanes' batch fills (:class:`NativeCsrRecBatcher` for ``.crec``,
 :class:`NativeDenseRecBatcher` for ``.drec``), RecordIO framing
 (:class:`NativeRecordIOWriter`, :class:`NativeRecordIOReader`), the
@@ -15,7 +15,8 @@ URI-dispatched byte streams
 (:class:`NativeStream`, :func:`path_info`) for checkpoints and serving
 artifacts, the native half of the local-filesystem fault plan
 (:func:`set_fs_fault_plan`), and the native telemetry and trace documents
-(:func:`native_telemetry_snapshot`, :func:`native_trace_snapshot`).
+(:func:`native_telemetry_snapshot`, :func:`native_trace_snapshot`) with
+the remote-I/O counters read from it (:func:`io_retry_stats`).
 
 bfloat16 planes are carried as ``uint16`` numpy arrays of bf16 bits; torch
 reads them with ``.view(torch.bfloat16)``. The port needs no ``ml_dtypes``.
@@ -39,7 +40,8 @@ __all__ = ["lib", "build", "LIB_PATH", "NativeParser", "NativeBatcher",
            "NativeRecordIOWriter", "NativeRecordIOReader", "NativeStream",
            "RowBlock", "BF16_STORAGE", "bf16_bits", "path_info",
            "set_fs_fault_plan", "native_telemetry_snapshot",
-           "native_trace_snapshot"]
+           "native_trace_snapshot", "io_retry_stats",
+           "reset_io_retry_stats"]
 
 LIB_PATH = os.path.join(BUILD_DIR, "libdmlc_core_tpu_torch.so")
 _CPP_DIR = os.path.join(REPO_ROOT, "cpp")
@@ -85,6 +87,24 @@ class RowBlockC(ctypes.Structure):
         ("value_i32", ctypes.POINTER(ctypes.c_int32)),
         ("value_i64", ctypes.POINTER(ctypes.c_int64)),
         ("value_dtype", ctypes.c_int32),
+    ]
+
+
+class ParsePipelineStatsC(ctypes.Structure):
+    """Mirror of dct_parse_pipeline_stats_t in cpp/src/capi.cc."""
+    _fields_ = [
+        ("chunks_read", ctypes.c_uint64),
+        ("blocks_delivered", ctypes.c_uint64),
+        ("reader_waits", ctypes.c_uint64),
+        ("worker_waits", ctypes.c_uint64),
+        ("consumer_waits", ctypes.c_uint64),
+        ("inflight_now", ctypes.c_uint64),
+        ("inflight_peak", ctypes.c_uint64),
+        ("inflight_sum", ctypes.c_uint64),
+        ("capacity", ctypes.c_uint64),
+        ("workers", ctypes.c_uint64),
+        # structural-scan lane: 0 scalar, 1 swar, 2 sse2, 3 avx2
+        ("simd_tier", ctypes.c_uint64),
     ]
 
 
@@ -140,6 +160,10 @@ def _declare_signatures(cdll: ctypes.CDLL) -> None:
         "dct_parser_set_epoch": (i, [vp, u, c.POINTER(c.c_int32)]),
         "dct_parser_bytes_read": (i, [vp, c.POINTER(sz)]),
         "dct_parser_free": (i, [vp]),
+        "dct_parser_pipeline_stats": (i, [vp,
+                                          c.POINTER(ParsePipelineStatsC),
+                                          c.POINTER(i)]),
+        "dct_io_stats_reset": (i, []),
         "dct_batcher_create": (i, [c.c_char_p, u, u, c.c_char_p, i, i,
                                    c.c_uint64, c.c_uint32, c.c_uint64,
                                    c.POINTER(vp)]),
@@ -240,16 +264,33 @@ class NativeParser:
     """Multithreaded text parser producing :class:`RowBlock` views
     (reference Parser<I,D>::Create, data.h:307). ``index64`` parses
     feature ids as uint64 (the ``index64`` device lane and the converter
-    read blocks through it)."""
+    read blocks through it).
+
+    With ``threaded=True`` a native reader keeps up to
+    ``chunks_in_flight`` chunks outstanding (0 = auto) for a pool of
+    ``nthread`` workers, and blocks come out in input order
+    (cpp/src/parser.h PipelinedParser); :meth:`pipeline_stats` reads its
+    counters. ``cache_dir`` and ``cache`` (never|auto|refresh) opt into
+    the shard cache: the first pass tees parsed blocks into a binary shard
+    under ``cache_dir``, later epochs replay it. Both also come from URI
+    sugar (``#cachefile=<dir>``, ``?cache=``) and the environment
+    (``DMLC_DATA_CACHE_DIR``, ``DMLC_DATA_CACHE``), read by the native
+    core."""
 
     def __init__(self, uri: str, part: int = 0, npart: int = 1,
                  fmt: str = "auto", nthread: int = 0, threaded: bool = True,
-                 index64: bool = False):
+                 index64: bool = False, chunks_in_flight: int = 0,
+                 cache_dir: str = "", cache: str = ""):
+        # the native core refuses the same values; this fails earlier
+        # with the same vocabulary
+        if cache not in ("", "never", "auto", "refresh"):
+            raise DMLCError(
+                f"cache must be one of never|auto|refresh, got {cache!r}")
         self._h = ctypes.c_void_p()
         _check(lib().dct_parser_create_ex(
             uri.encode(), part, npart, fmt.encode(), nthread,
-            1 if threaded else 0, 1 if index64 else 0, 0, b"", b"",
-            ctypes.byref(self._h)))
+            1 if threaded else 0, 1 if index64 else 0, chunks_in_flight,
+            cache_dir.encode(), cache.encode(), ctypes.byref(self._h)))
 
     def next_block(self) -> Optional[RowBlock]:
         """Next parsed block, or None at end of data."""
@@ -291,6 +332,32 @@ class NativeParser:
         out = ctypes.c_size_t()
         _check(lib().dct_parser_bytes_read(self._h, ctypes.byref(out)))
         return out.value
+
+    def pipeline_stats(self) -> Optional[dict]:
+        """The parse pipeline's counters (cpp/src/parser.h
+        ParsePipelineStats), or None for a ``threaded=False`` parser:
+        ``occupancy_avg`` is the mean chunks in flight at each admit, many
+        ``reader_waits`` mean the consumer binds, many ``consumer_waits``
+        that parsing binds; ``simd_lane`` names the scan's tier. The same
+        counters add up process-wide in the telemetry registry
+        (``parse_*_total``, ``parse_stage_*_us``)."""
+        s = ParsePipelineStatsC()
+        has = ctypes.c_int()
+        _check(lib().dct_parser_pipeline_stats(self._h, ctypes.byref(s),
+                                               ctypes.byref(has)))
+        if not has.value:
+            return None
+        out = {name: int(getattr(s, name)) for name, _ in s._fields_}
+        out["occupancy_avg"] = (round(s.inflight_sum / s.chunks_read, 3)
+                                if s.chunks_read else 0.0)
+        out["simd_lane"] = {0: "scalar", 1: "swar", 2: "sse2",
+                            3: "avx2"}.get(int(s.simd_tier), "scalar")
+        return out
+
+    def io_stats(self) -> dict:
+        """The process-wide remote-I/O counters (:func:`io_retry_stats`;
+        local files never touch them)."""
+        return io_retry_stats()
 
     def close(self) -> None:
         """Free the native handle (idempotent)."""
@@ -749,3 +816,32 @@ def native_telemetry_snapshot() -> dict:
 def native_trace_snapshot() -> dict:
     """The native span ring's document (``dct_trace_snapshot``)."""
     return _json_doc(lib().dct_trace_snapshot)
+
+
+# io_retry_stats() key -> the telemetry counter it reads
+_LEGACY_IO_STAT_NAMES = (
+    ("requests", "io_requests_total"),
+    ("retries", "io_retries_total"),
+    ("backoff_ms_total", "io_backoff_ms_total"),
+    ("timeouts", "io_timeouts_total"),
+    ("faults_injected", "io_faults_injected_total"),
+    ("giveups", "io_giveups_total"),
+    ("deadline_exhausted", "io_deadline_exhausted_total"),
+)
+
+
+def io_retry_stats() -> dict:
+    """The process-wide remote-I/O counters of every native stream
+    (cpp/src/retry.h IoStats) under the reference's keys: ``requests``,
+    ``retries`` (backoff sleeps), ``backoff_ms_total``, ``timeouts``,
+    ``faults_injected``, ``giveups`` and ``deadline_exhausted``. A view of
+    the native registry's ``io_*_total`` counters."""
+    counters = {c["name"]: c["value"]
+                for c in native_telemetry_snapshot().get("counters", [])}
+    return {legacy: int(counters.get(name, 0))
+            for legacy, name in _LEGACY_IO_STAT_NAMES}
+
+
+def reset_io_retry_stats() -> None:
+    """Zero the :func:`io_retry_stats` counters."""
+    _check(lib().dct_io_stats_reset())

@@ -46,8 +46,6 @@ __all__ = ["init_from_env", "allreduce", "allreduce_tree", "allgather_bytes",
 logger = logging.getLogger("dmlc_core_tpu_torch.parallel")
 
 _OPS = ("sum", "max", "min", "mean")
-_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
-               "min": dist.ReduceOp.MIN}
 
 
 def _collective_timeout() -> datetime.timedelta:
@@ -195,21 +193,23 @@ def barrier(name: str = "barrier") -> None:
 def allreduce(x, op: str = "sum") -> torch.Tensor:
     """Rabit-equivalent Allreduce: each process contributes one value; the
     elementwise reduction comes back on every process, on the input's
-    device. ``mean`` divides the sum by the world size (in float64 for
-    integer inputs, as numpy's mean in the reference). A one-process job
-    returns the input as a tensor."""
+    device. As the reference on its host transport, the values ride one
+    packed all-gather (:func:`allgather_bytes`) and every rank reduces the
+    rank-ordered stack with numpy (``_reduce_stack``), so sums and means
+    are the same bits for any number of ranks and any backend (``mean``
+    of integers is float64, numpy's mean). A one-process job returns the
+    input as a tensor."""
     if op not in _OPS:
         raise ValueError(f"op must be one of {_OPS}")
     t = torch.as_tensor(x)
     if world_size() == 1:
         return t
-    work = t.detach().to(_comm_device()).reshape(-1).clone()
-    if op == "mean" and not work.is_floating_point():
-        work = work.to(torch.float64)
-    dist.all_reduce(work, op=_REDUCE_OPS.get(op, dist.ReduceOp.SUM))
-    if op == "mean":
-        work /= world_size()
-    return work.reshape(t.shape).to(t.device)
+    arr = _host_array(t)
+    blobs = allgather_bytes(arr.tobytes(), name="ar")
+    stack = np.stack([np.frombuffer(b, dtype=arr.dtype).reshape(arr.shape)
+                      for b in blobs])
+    # np.array keeps a 0-d result 0-d (ascontiguousarray would not)
+    return torch.from_numpy(np.array(_reduce_stack(stack, op))).to(t.device)
 
 
 def _reduce_stack(stack: np.ndarray, op: str) -> np.ndarray:

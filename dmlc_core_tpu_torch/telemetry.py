@@ -7,17 +7,31 @@ packages' numbers read alike:
 
 - the registry, the event ring and the span ring (with explicit-parent
   spans for request chains that cross threads, :func:`new_span_id`);
-- :func:`snapshot`, which merges this registry with the port's own native
-  core's registry when that library is loaded, and its renderings
-  :func:`prometheus_text` and :func:`trace_json`;
+- collectors (:func:`register_collector`) that refresh derived gauges at
+  every :func:`snapshot`, which merges this registry with the port's own
+  native core's registry when that library is loaded and appends the
+  derived gauges ``stall_stage_occupancy{stage=}``,
+  ``stall_verdict_code`` (:func:`stall_attribution`) and
+  ``device_overlap_ratio`` (:func:`device_overlap_ratio`, -1 before any
+  transfer); its renderings :func:`prometheus_text` (byte for byte the
+  reference's for the same document), :func:`events_jsonl` and
+  :func:`trace_json`;
+- the cluster half the tracker serves: :func:`rank_export`, a rank's
+  document, and the pure functions over such documents
+  :func:`cluster_prometheus_text` (per-rank series plus ``job:`` sums),
+  :func:`cluster_trace_json` (one lane a rank) and
+  :func:`straggler_attribution`;
 - the SLO plane the scoring server runs: :class:`WindowedView`
   (rolling-window rates and quantiles), :class:`SloMonitor` (multi-window
   burn-rate pages) and :func:`slo_page_active`;
-- :func:`flight_dump`, the postmortem file under ``DMLC_TRACE_DUMP``.
+- :func:`flight_dump`, the postmortem file under ``DMLC_TRACE_DUMP``, and
+  :class:`HostResourceSampler`, the ``/proc`` envelope of a run.
 
-Cluster merging, the JSONL event export, stall attribution and the host
-resource sampler are a later slice (ROADMAP.md queue 1, "The full
-telemetry plane").
+The reference also observes XLA compilations (``device_compile_us``,
+through a ``jax.monitoring`` hook). Eager torch compiles nothing, so the
+port has no such hook: ``device_compile_us`` is never observed here and
+``compile_bound`` is never the port's verdict. The device's own timeline
+comes from ``device/device_iter.py::torch_profiler_capture`` instead.
 """
 
 from __future__ import annotations
@@ -25,18 +39,24 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "HIST_BUCKETS",
            "SNAPSHOT_VERSION", "SPANS_MAX", "METRIC_HELP", "counter",
-           "gauge", "histogram", "enabled", "enable", "reset", "emit_event",
-           "events", "new_span_id", "emit_span", "span", "spans",
-           "clock_anchor", "trace_snapshot", "trace_json", "snapshot",
-           "prometheus_text", "quantile_from_buckets", "flight_dump",
+           "gauge", "histogram", "register_collector",
+           "unregister_collector", "enabled", "enable", "reset",
+           "emit_event", "events", "new_span_id", "emit_span", "span",
+           "spans", "clock_anchor", "trace_snapshot", "trace_json",
+           "snapshot", "prometheus_text", "events_jsonl",
+           "quantile_from_buckets", "VERDICT_CODES", "stall_attribution",
+           "device_overlap_ratio", "straggler_attribution", "flight_dump",
+           "rank_export", "cluster_prometheus_text", "cluster_trace_json",
            "WindowedView", "SloMonitor", "start_windowed_view",
-           "stop_windowed_view", "windowed_view", "slo_page_active"]
+           "stop_windowed_view", "windowed_view", "slo_page_active",
+           "HostResourceSampler"]
 
 SNAPSHOT_VERSION = 1
 # must match cpp/src/telemetry.h kHistBuckets (le 2^0..2^27, then +Inf)
@@ -48,6 +68,7 @@ _lock = threading.Lock()
 _counters: Dict[Tuple[str, tuple], "Counter"] = {}
 _gauges: Dict[Tuple[str, tuple], "Gauge"] = {}
 _hists: Dict[Tuple[str, tuple], "Histogram"] = {}
+_collectors: List[Callable[[], None]] = []
 _events: List[dict] = []
 _spans: List[dict] = []
 _spans_dropped = 0
@@ -212,6 +233,24 @@ def histogram(name: str, labels: Optional[Dict[str, str]] = None
               ) -> Histogram:
     """Resolve-or-register the histogram ``(name, labels)``."""
     return _resolve(_hists, Histogram, name, labels)
+
+
+def register_collector(fn: Callable[[], None]) -> None:
+    """Register a callback that :func:`snapshot` runs before it reads the
+    registry, so a component refreshes derived gauges lazily instead of
+    on a timer. A collector that raises is skipped: one broken collector
+    must not sink a scrape."""
+    with _lock:
+        if fn not in _collectors:
+            _collectors.append(fn)
+
+
+def unregister_collector(fn: Callable[[], None]) -> None:
+    """Remove a collector (no-op when absent), on the component's
+    shutdown."""
+    with _lock:
+        if fn in _collectors:
+            _collectors.remove(fn)
 
 
 def enabled() -> bool:
@@ -431,21 +470,258 @@ def _wall_spans(snap: dict) -> List[dict]:
     return out
 
 
-def trace_json(snap: Optional[dict] = None) -> str:
-    """The process trace (default: :func:`trace_snapshot` now) as
-    Chrome-trace JSON, loadable in Perfetto."""
-    if snap is None:
-        snap = trace_snapshot()
-    pid = snap.get("pid", 0)
+def _chrome_events(wall_spans: List[dict], pid, label: str) -> List[dict]:
+    """Chrome-trace events of one process lane: the ``process_name``
+    record, then one complete ("X") event a span."""
     evs = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
-            "args": {"name": f"pid {pid}"}}]
-    for s in _wall_spans(snap):
+            "args": {"name": label}}]
+    for s in wall_spans:
         evs.append({"ph": "X", "name": s["name"], "pid": pid,
                     "tid": s["tid"], "ts": s["ts"],
                     "dur": max(int(s["dur"]), 0),
                     "cat": s.get("cat", "python"),
                     "args": dict(s.get("args") or {}, span_id=s["id"],
                                  parent=s["parent"])})
+    return evs
+
+
+def trace_json(snap: Optional[dict] = None) -> str:
+    """The process trace (default: :func:`trace_snapshot` now) as
+    Chrome-trace JSON, loadable in Perfetto."""
+    if snap is None:
+        snap = trace_snapshot()
+    pid = snap.get("pid", 0)
+    evs = _chrome_events(_wall_spans(snap), pid, f"pid {pid}")
+    return json.dumps({"traceEvents": evs, "displayTimeUnit": "ms"})
+
+
+# -- stall attribution -------------------------------------------------------
+# verdict -> stall_verdict_code gauge value
+VERDICT_CODES = {"unknown": -1, "fill_bound": 0, "parse_bound": 1,
+                 "consumer_bound": 2, "transfer_bound": 3,
+                 "stage_bound": 4, "compile_bound": 5,
+                 "straggler_bound": 6}
+
+# the consumer binds when it waited on the head-of-line chunk for less
+# than this fraction of the pipeline's busy time
+_STARVED_WAIT_FRACTION = 0.05
+
+
+def stall_attribution(snap: Optional[dict] = None) -> dict:
+    """Per-stage occupancy and a verdict naming the stage that binds the
+    batch path, from the unlabeled stage histograms of one snapshot
+    (default: take one now). Device lane first: compilation
+    (``device_compile_us``, never observed by the port) dominating every
+    other stage is ``compile_bound``; the net host batch assembly
+    (``device_stage_us`` less the fill, parse and pipeline wait nested in
+    it) dominating is ``stage_bound``; ``device_transfer_us`` above both
+    fill and parse is ``transfer_bound``. Host side, a pipeline wait under
+    5 % of fill + parse means the pipeline kept up (``consumer_bound``);
+    else the larger of fill (source read and shard-cache replay) and parse
+    (scan and decode) names it. Nothing observed is ``unknown``. Returns
+    ``{"verdict", "stage_us", "occupancy"}``, the reference's result."""
+    if snap is None:
+        snap = snapshot()
+    sums: Dict[str, float] = {}
+    for h in snap.get("histograms", ()):
+        if not h.get("labels"):
+            sums[h["name"]] = sums.get(h["name"], 0.0) + float(h["sum"])
+    fill = sums.get("parse_stage_fill_us", 0.0) + \
+        sums.get("cache_read_us", 0.0)
+    parse = sums.get("parse_stage_parse_us", 0.0) + \
+        sums.get("parse_stage_scan_us", 0.0)
+    wait = sums.get("parse_stage_reassemble_wait_us", 0.0)
+    transfer = sums.get("device_transfer_us", 0.0)
+    stage = max(sums.get("device_stage_us", 0.0) - fill - parse - wait,
+                0.0)
+    compile_t = sums.get("device_compile_us", 0.0)
+    dev_wait = sums.get("device_wait_us", 0.0)
+    busy = fill + parse
+    stage_us = {"fill": fill, "parse": parse, "pipeline_wait": wait,
+                "transfer": transfer, "stage": stage,
+                "compile": compile_t, "device_wait": dev_wait}
+    total = busy + transfer + stage + compile_t
+    occupancy = {k: (stage_us[k] / total if total > 0 else 0.0)
+                 for k in ("fill", "parse", "transfer", "stage",
+                           "compile")}
+    occupancy["pipeline_wait"] = wait / total if total > 0 else 0.0
+    if total <= 0:
+        verdict = "unknown"
+    elif compile_t > max(transfer, stage, fill, parse):
+        verdict = "compile_bound"
+    elif stage > max(transfer, fill, parse):
+        verdict = "stage_bound"
+    elif transfer > max(fill, parse):
+        verdict = "transfer_bound"
+    elif wait <= _STARVED_WAIT_FRACTION * busy:
+        verdict = "consumer_bound"
+    elif fill > parse:
+        verdict = "fill_bound"
+    else:
+        verdict = "parse_bound"
+    return {"verdict": verdict, "stage_us": stage_us,
+            "occupancy": occupancy}
+
+
+def device_overlap_ratio(span_list: Optional[List[dict]] = None
+                         ) -> Optional[float]:
+    """Fraction of host->device transfer time hidden behind the consumer's
+    compute, from the span ring (default: read it now): each
+    ``device.put`` interval less its overlap with the merged
+    ``device.wait`` intervals (time the consumer waited through is
+    exposed). All spans share the ``perf_counter`` clock. A value in
+    [0, 1], or None when the ring holds no ``device.put`` span."""
+    if span_list is None:
+        span_list = spans()
+    xfer = [(s["ts"], s["ts"] + s["dur"]) for s in span_list
+            if s["name"] == "device.put"]
+    if not xfer:
+        return None
+    waits = sorted((s["ts"], s["ts"] + s["dur"]) for s in span_list
+                   if s["name"] == "device.wait")
+    merged: List[List[float]] = []
+    for a, b in waits:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = exposed = 0.0
+    for a, b in xfer:
+        total += b - a
+        for wa, wb in merged:
+            if wa >= b:
+                break
+            lo, hi = max(a, wa), min(b, wb)
+            if hi > lo:
+                exposed += hi - lo
+    if total <= 0:
+        return None
+    return min(max((total - exposed) / total, 0.0), 1.0)
+
+
+def straggler_attribution(step_durs_by_rank: Dict[int, List[float]],
+                          factor: float = 2.0,
+                          min_steps: int = 3) -> dict:
+    """Name the straggler from per-rank step durations: a rank is
+    ``straggler_bound`` when its median step exceeds ``factor`` times the
+    median of the other ranks' medians. Ranks with fewer than
+    ``min_steps`` durations abstain; fewer than two voting ranks is
+    ``unknown``. Returns ``{"verdict", "rank", "ratio", "median_us"}``
+    (``rank`` None and ``ratio`` 0.0 when no rank is bound)."""
+    medians: Dict[int, float] = {}
+    for rank, durs in step_durs_by_rank.items():
+        if len(durs) >= max(1, int(min_steps)):
+            s = sorted(durs)
+            medians[rank] = float(s[len(s) // 2])
+    out = {"verdict": "unknown", "rank": None, "ratio": 0.0,
+           "median_us": medians}
+    if len(medians) < 2:
+        return out
+    worst_rank, worst_ratio = None, 0.0
+    for rank, med in medians.items():
+        peers = sorted(m for r, m in medians.items() if r != rank)
+        peer_med = peers[len(peers) // 2]
+        if peer_med <= 0:
+            continue
+        ratio = med / peer_med
+        if ratio > worst_ratio:
+            worst_rank, worst_ratio = rank, ratio
+    if worst_rank is not None and worst_ratio > factor:
+        out["verdict"] = "straggler_bound"
+        out["rank"] = worst_rank
+        out["ratio"] = worst_ratio
+    return out
+
+
+# -- cluster aggregation -----------------------------------------------------
+def rank_export(max_spans: int = 2048) -> dict:
+    """The document a rank ships to its tracker: the merged metric
+    snapshot and the most recent ``max_spans`` spans on the wall clock
+    (each half shifted by its own anchor pair, so ranks merge without
+    knowing each other's monotonic clocks)."""
+    snap = snapshot()
+    wall = _wall_spans(trace_snapshot())
+    if len(wall) > max_spans:
+        wall = wall[-max_spans:]
+    return {"pid": os.getpid(), "anchor": snap["anchor"],
+            "metrics": {"counters": snap["counters"],
+                        "gauges": snap["gauges"],
+                        "histograms": snap["histograms"]},
+            "spans": wall}
+
+
+def _aggregate_ranks(per_rank: Dict[int, dict]) -> dict:
+    """Job sums over rank documents: counters by (name, labels),
+    histograms by (name, labels) bucket by bucket."""
+    counters: Dict[tuple, float] = {}
+    hists: Dict[tuple, dict] = {}
+    for doc in per_rank.values():
+        m = doc.get("metrics", {})
+        for c in m.get("counters", ()):
+            key = (c["name"], _labels_key(c.get("labels")))
+            counters[key] = counters.get(key, 0) + c["value"]
+        for h in m.get("histograms", ()):
+            key = (h["name"], _labels_key(h.get("labels")))
+            agg = hists.get(key)
+            if agg is None:
+                hists[key] = {"count": h["count"], "sum": h["sum"],
+                              "buckets": list(h["buckets"])}
+            else:
+                agg["count"] += h["count"]
+                agg["sum"] += h["sum"]
+                agg["buckets"] = [a + b for a, b in
+                                  zip(agg["buckets"], h["buckets"])]
+    return {"counters": counters, "histograms": hists}
+
+
+def cluster_prometheus_text(per_rank: Dict[int, dict],
+                            local_snap: Optional[dict] = None) -> str:
+    """The job-wide exposition: this process's snapshot (default: take one
+    now) as it is, every rank's series with a ``rank="<r>"`` label, and
+    ``job:<name>`` sums over the ranks (counters by value, histograms
+    bucket by bucket), one ``# HELP`` / ``# TYPE`` pair a family."""
+    if local_snap is None:
+        local_snap = snapshot()
+    fams: Dict[str, dict] = {}
+    _collect_doc(fams, local_snap)
+    for rank in sorted(per_rank):
+        _collect_doc(fams, per_rank[rank].get("metrics", {}),
+                     extra=f'rank="{rank}"')
+    agg = _aggregate_ranks(per_rank)
+    for (name, labels), value in sorted(agg["counters"].items()):
+        f = fams.setdefault("job:" + name, {
+            "kind": "counter",
+            "help": f"job-wide sum of {name} across ranks", "lines": []})
+        f["lines"].append(f"job:{name}{_fmt_labels(dict(labels))} "
+                          f"{_fmt_value(value)}")
+    for (name, labels), h in sorted(agg["histograms"].items()):
+        f = fams.setdefault("job:" + name, {
+            "kind": "histogram",
+            "help": f"job-wide bucket-wise sum of {name} across ranks",
+            "lines": []})
+        _render_hist_series(f["lines"], "job:" + name, dict(labels), h)
+    return _emit_families(fams)
+
+
+def cluster_trace_json(per_rank: Dict[int, dict],
+                       local_trace: Optional[dict] = None,
+                       meta: Optional[dict] = None) -> str:
+    """The merged job timeline: one Chrome-trace lane a rank (``pid`` is
+    the rank) from each rank's wall-clock spans, this process's lane
+    (``pid`` 999999, default: :func:`trace_snapshot` now), and ``meta``
+    (a straggler verdict, say) as one metadata event on that lane."""
+    evs: List[dict] = []
+    for rank in sorted(per_rank):
+        doc = per_rank[rank]
+        evs += _chrome_events(doc.get("spans", ()), rank,
+                              f"rank {rank} (pid {doc.get('pid', '?')})")
+    if local_trace is None:
+        local_trace = trace_snapshot()
+    evs += _chrome_events(_wall_spans(local_trace), 999999,
+                          f"tracker (pid {local_trace.get('pid', '?')})")
+    if meta:
+        evs.append({"ph": "M", "name": "job_meta", "pid": 999999,
+                    "tid": 0, "args": dict(meta)})
     return json.dumps({"traceEvents": evs, "displayTimeUnit": "ms"})
 
 
@@ -458,7 +734,18 @@ def snapshot(native: Optional[bool] = None) -> dict:
     False leaves it out. Schema (the reference's version 1): ``{"version",
     "enabled", "anchor", "native", "native_anchor", "counters": [{"name",
     "labels", "value"}], "gauges": [...], "histograms": [{"name",
-    "labels", "count", "sum", "buckets", ["exemplars"]}], "events"}``."""
+    "labels", "count", "sum", "buckets", ["exemplars"]}], "events"}``.
+    The registered collectors run first; the gauge list ends with the
+    derived ``stall_stage_occupancy{stage=}``, ``stall_verdict_code`` and
+    ``device_overlap_ratio`` (-1 before any transfer), computed from the
+    document itself and the span ring."""
+    with _lock:
+        collectors = list(_collectors)
+    for fn in collectors:
+        try:
+            fn()
+        except Exception:
+            pass  # a broken collector must not sink the scrape
     doc = {"version": SNAPSHOT_VERSION, "enabled": enabled(),
            "anchor": clock_anchor(), "native": False,
            "native_anchor": None, "counters": [], "gauges": [],
@@ -492,12 +779,24 @@ def snapshot(native: Optional[bool] = None) -> dict:
         doc["counters"].append({"name": "spans_dropped_total",
                                 "labels": {"half": "python"},
                                 "value": _spans_dropped})
+    # derived from the document, not by a collector (which would recurse)
+    att = stall_attribution(doc)
+    for stage, frac in att["occupancy"].items():
+        doc["gauges"].append({"name": "stall_stage_occupancy",
+                              "labels": {"stage": stage}, "value": frac})
+    doc["gauges"].append({"name": "stall_verdict_code", "labels": {},
+                          "value": VERDICT_CODES[att["verdict"]]})
+    # -1 keeps 0 meaningful: a lane whose transfers were all exposed
+    ratio = device_overlap_ratio()
+    doc["gauges"].append({"name": "device_overlap_ratio", "labels": {},
+                          "value": -1.0 if ratio is None else ratio})
     return doc
 
 
-# One-line HELP text per metric name the port or its native core emits
-# (the reference's catalog, doc/observability.md, less the names of
-# planes the port does not have yet).
+# One-line HELP text per metric name the port or its native core emits:
+# the reference's catalog (doc/observability.md) less the names of planes
+# the port does not have yet, word for word except serve_forward_us (the
+# port's forward is eager, not jitted).
 METRIC_HELP: Dict[str, str] = {
     "io_requests_total": "HTTP requests sent",
     "io_retries_total": "backoff sleeps taken",
@@ -538,7 +837,10 @@ METRIC_HELP: Dict[str, str] = {
     "fs_fault_injected_total": "DMLC_FS_FAULT_PLAN firings per op",
     "ckpt_save_failures_total": "checkpoint saves that raised",
     "event_log_dropped_total":
-        "event-log lines dropped by a contained I/O failure",
+        "tracker event-log lines dropped by a contained I/O failure",
+    "rowblock_batch_us": "one RowBlockIter native block pull (us)",
+    "rowblock_batches_total": "row blocks served",
+    "rowblock_skipped_batches_total": "on_error=skip skips",
     "device_transfer_us": "one device_put, submit to arrays ready (us)",
     "device_put_submit_us": "the device_put dispatch alone (us)",
     "device_put_block_us": "dispatch-to-ready DMA wait (us)",
@@ -555,7 +857,15 @@ METRIC_HELP: Dict[str, str] = {
     "device_zero_copy_batches_total":
         "batches transferred by the zero-copy device_put path (staging "
         "buffers aliased/DMA'd in place, no host copy)",
+    "device_overlap_ratio":
+        "fraction of transfer time hidden behind consumer compute "
+        "(-1 before any transfer)",
     "telemetry_events_total": "events per kind",
+    "stall_stage_occupancy":
+        "fraction of instrumented batch-path time in the stage",
+    "stall_verdict_code":
+        "-1 unknown, 0 fill, 1 parse, 2 consumer, 3 transfer, 4 stage, "
+        "5 compile, 6 straggler bound",
     "spans_dropped_total":
         "span-ring records overwritten by wrap, per half",
     "window_rate":
@@ -568,6 +878,8 @@ METRIC_HELP: Dict[str, str] = {
         "error-budget burn multiple per objective and window",
     "slo_page": "1 while any SLO objective is paging (latched)",
     "slo_page_trips_total": "SLO page activations per objective",
+    "host_cpu_busy_frac": "whole-host CPU busy fraction, last interval",
+    "host_rss_bytes": "sampling process RSS, last sample",
     "serve_requests_total": "HTTP requests parsed by the front end",
     "serve_admitted_total": "score requests admitted to the queue",
     "serve_scored_total": "score requests answered 200 with scores",
@@ -597,7 +909,8 @@ METRIC_HELP: Dict[str, str] = {
     "serve_distinct_shapes":
         "distinct padded (kind, rows, nnz) forward shapes this process",
     "serve_access_log_dropped_total":
-        "access-log lines dropped by a contained I/O failure",}
+        "access-log lines dropped by a contained I/O failure",
+}
 
 
 def _escape_label(v: str) -> str:
@@ -618,6 +931,68 @@ def _fmt_value(v) -> str:
     return str(int(v))
 
 
+def _escape_help(text: str) -> str:
+    """HELP-line escaping: backslash and newline."""
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _render_hist_series(lines: List[str], name: str, labels: Dict[str, str],
+                        h: dict) -> None:
+    """One histogram's cumulative ``_bucket{le=}``, ``_sum`` and
+    ``_count`` lines."""
+    cum = 0
+    for i, n in enumerate(h["buckets"]):
+        cum += n
+        le = "+Inf" if i == len(h["buckets"]) - 1 else str(1 << i)
+        le_label = 'le="' + le + '"'
+        lines.append(f"{name}_bucket{_fmt_labels(labels, le_label)} {cum}")
+    lines.append(f"{name}_sum{_fmt_labels(labels)} "
+                 f"{_fmt_value(h['sum'])}")
+    lines.append(f"{name}_count{_fmt_labels(labels)} "
+                 f"{_fmt_value(h['count'])}")
+
+
+def _family(fams: Dict[str, dict], name: str, kind: str) -> List[str]:
+    """The sample lines of one family (first-seen order and kind)."""
+    f = fams.get(name)
+    if f is None:
+        f = fams[name] = {"kind": kind, "lines": []}
+    return f["lines"]
+
+
+def _collect_doc(fams: Dict[str, dict], doc: dict, extra: str = "") -> None:
+    """One document's counters, gauges and histograms by family, with an
+    optional extra label (``rank="0"``) on every sample."""
+    for c in doc.get("counters", ()):
+        _family(fams, c["name"], "counter").append(
+            f"{c['name']}{_fmt_labels(c['labels'], extra)} "
+            f"{_fmt_value(c['value'])}")
+    for g in doc.get("gauges", ()):
+        _family(fams, g["name"], "gauge").append(
+            f"{g['name']}{_fmt_labels(g['labels'], extra)} "
+            f"{_fmt_value(g['value'])}")
+    for h in doc.get("histograms", ()):
+        labels = dict(h["labels"])
+        if extra:
+            k, v = extra.split("=", 1)
+            labels[k] = v.strip('"')
+        _render_hist_series(_family(fams, h["name"], "histogram"),
+                            h["name"], labels, h)
+
+
+def _emit_families(fams: Dict[str, dict]) -> str:
+    """Families as exposition text: each family's lines together behind
+    one ``# HELP`` (from :data:`METRIC_HELP`) and ``# TYPE`` pair."""
+    lines: List[str] = []
+    for name, f in fams.items():
+        help_text = f.get("help") or METRIC_HELP.get(name)
+        if help_text:
+            lines.append(f"# HELP {name} {_escape_help(help_text)}")
+        lines.append(f"# TYPE {name} {f['kind']}")
+        lines += f["lines"]
+    return "\n".join(lines) + "\n"
+
+
 def prometheus_text(snap: Optional[dict] = None) -> str:
     """A snapshot (default: take one now) in the Prometheus text format
     0.0.4: each family's samples together behind one ``# HELP`` and
@@ -626,53 +1001,29 @@ def prometheus_text(snap: Optional[dict] = None) -> str:
     if snap is None:
         snap = snapshot()
     fams: Dict[str, dict] = {}
+    _collect_doc(fams, snap)
+    return _emit_families(fams)
 
-    def family(name: str, kind: str) -> List[str]:
-        f = fams.get(name)
-        if f is None:
-            f = fams[name] = {"kind": kind, "lines": []}
-        return f["lines"]
 
-    for kind, key in (("counter", "counters"), ("gauge", "gauges")):
-        for m in snap.get(key, ()):
-            family(m["name"], kind).append(
-                f"{m['name']}{_fmt_labels(m['labels'])} "
-                f"{_fmt_value(m['value'])}")
-    for h in snap.get("histograms", ()):
-        lines = family(h["name"], "histogram")
-        cum = 0
-        for i, n in enumerate(h["buckets"]):
-            cum += n
-            le = "+Inf" if i == len(h["buckets"]) - 1 else str(1 << i)
-            le_label = 'le="' + le + '"'
-            lines.append(f"{h['name']}_bucket"
-                         f"{_fmt_labels(h['labels'], le_label)} {cum}")
-        lines.append(f"{h['name']}_sum{_fmt_labels(h['labels'])} "
-                     f"{_fmt_value(h['sum'])}")
-        lines.append(f"{h['name']}_count{_fmt_labels(h['labels'])} "
-                     f"{_fmt_value(h['count'])}")
-    out: List[str] = []
-    for name, f in fams.items():
-        help_text = METRIC_HELP.get(name)
-        if help_text:
-            out.append(f"# HELP {name} "
-                       + help_text.replace("\\", "\\\\").replace("\n",
-                                                                 "\\n"))
-        out.append(f"# TYPE {name} {f['kind']}")
-        out += f["lines"]
-    return "\n".join(out) + "\n"
+def events_jsonl(snap: Optional[dict] = None) -> str:
+    """A snapshot's event stream (default: take one now) as JSONL, one
+    ``{"ts", "event", ...}`` object a line."""
+    if snap is None:
+        snap = snapshot()
+    return "".join(json.dumps(rec) + "\n" for rec in snap.get("events", []))
 
 
 # -- flight recorder ---------------------------------------------------------
 _flight_seq = 0
 
 
-def flight_dump(reason: str) -> Optional[str]:
+def flight_dump(reason: str, rank: Optional[int] = None) -> Optional[str]:
     """Record a postmortem: a ``flight-dump`` event, and, when
     ``DMLC_TRACE_DUMP`` names a directory, the span rings, the event ring
-    and a full snapshot written to ``flight_<pid>_<n>.json`` there.
-    Returns the file's path, else None. A failure to write is swallowed:
-    a postmortem must never mask the failure it records."""
+    and a full snapshot written to ``flight_<pid>_<n>.json`` there, with
+    ``rank`` (the world rank, or None). Returns the file's path, else
+    None. A failure to write is swallowed: a postmortem must never mask
+    the failure it records."""
     emit_event("flight-dump", reason=reason)
     out_dir = os.environ.get("DMLC_TRACE_DUMP")
     if not out_dir:
@@ -682,7 +1033,8 @@ def flight_dump(reason: str) -> Optional[str]:
         with _lock:
             _flight_seq += 1
             seq = _flight_seq
-        doc = {"reason": reason, "pid": os.getpid(), "wall_ts": time.time(),
+        doc = {"reason": reason, "rank": rank, "pid": os.getpid(),
+               "wall_ts": time.time(),
                "anchor": clock_anchor(), "trace": trace_snapshot(),
                "metrics": snapshot()}
         os.makedirs(out_dir, exist_ok=True)
@@ -1011,3 +1363,266 @@ def slo_page_active() -> bool:
     scoring server's admission gate and ``/readyz`` read."""
     v = _view
     return v is not None and v.slo is not None and v.slo.paging
+
+
+# ---------------------------------------------------------------------------
+# Host resource sampler, a copy of the reference's: the CPU, RSS, page
+# cache, network and disk envelope a measured run went through, per
+# section() when one run holds several.
+# ---------------------------------------------------------------------------
+class HostResourceSampler:
+    """Lightweight /proc-based host sampler for bench lanes.
+
+    A daemon thread samples per-core CPU jiffies (``/proc/stat``), this
+    process's RSS (``/proc/self/statm``), the host page cache
+    (``/proc/meminfo`` Cached), and cumulative network/disk bytes
+    (``/proc/net/dev``, ``/proc/diskstats``) every ``interval_s``.
+    :meth:`summary` reduces any time window to an envelope — mean/max
+    per-core busy fraction, peak RSS, byte deltas — and
+    :meth:`section` names a window after the lane that ran inside it,
+    so a remote-lane verdict can say *which* cores were saturated
+    (client parse vs origin serve) instead of guessing.
+
+    Degrades to ``{"unavailable": reason}`` summaries on hosts without
+    /proc.  Overhead: one thread, a handful of small file reads per
+    tick — nothing on the measured path.
+    """
+
+    def __init__(self, interval_s: float = 0.25):
+        self.interval_s = max(0.05, float(interval_s))
+        self.samples: List[dict] = []   # append-only; GIL-safe reads
+        self.sections: Dict[str, dict] = {}
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._page = os.sysconf("SC_PAGESIZE") if hasattr(
+            os, "sysconf") else 4096
+        self._tick = os.sysconf("SC_CLK_TCK") if hasattr(
+            os, "sysconf") else 100
+        self._err: Optional[str] = None
+        # label -> [pids]: per-process CPU attribution (sandboxed /proc
+        # implementations zero the aggregate per-core jiffies while
+        # per-pid clocks still tick — and the remote-lane verdict needs
+        # the client-vs-origin CPU split either way)
+        self._watch: Dict[str, List[int]] = {"self": [os.getpid()]}
+        self._pid_last: Dict[int, int] = {}
+
+    def watch(self, label: str, *pids: int) -> None:
+        """Attribute the CPU of ``pids`` (e.g. a rig origin's workers, a
+        client subprocess) to ``label`` in every later summary."""
+        self._watch.setdefault(label, []).extend(int(p) for p in pids)
+
+    # -- raw readers (each guarded: a missing file disables, not crashes) --
+    def _read_cpu(self):
+        out = []
+        with open("/proc/stat") as f:
+            for line in f:
+                if not line.startswith("cpu") or line.startswith("cpu "):
+                    continue
+                parts = line.split()
+                vals = [int(x) for x in parts[1:11]]
+                idle = vals[3] + (vals[4] if len(vals) > 4 else 0)
+                out.append((sum(vals) - idle, sum(vals)))
+        return out
+
+    def _read_rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _read_cached(self):
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("Cached:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _read_net(self):
+        total = 0
+        with open("/proc/net/dev") as f:
+            for line in f.readlines()[2:]:
+                _, _, rest = line.partition(":")
+                if not rest:
+                    continue
+                v = rest.split()
+                total += int(v[0]) + int(v[8])  # rx + tx bytes
+        return total
+
+    # whole PHYSICAL devices only: partitions (sda1, nvme0n1p1) would
+    # double-count their disk, and stacked devices (dm-*, md*) would
+    # double-count their member disks
+    _DISK_RE = re.compile(
+        r"^(?:sd[a-z]+|vd[a-z]+|xvd[a-z]+|hd[a-z]+|nvme\d+n\d+"
+        r"|mmcblk\d+)$")
+
+    def _read_disk(self):
+        total = 0
+        with open("/proc/diskstats") as f:
+            for line in f:
+                v = line.split()
+                if len(v) < 14:
+                    continue
+                if not self._DISK_RE.match(v[2]):
+                    continue
+                total += (int(v[5]) + int(v[9])) * 512  # sectors r+w
+        return total
+
+    def _read_pid_cpu(self, pid: int) -> int:
+        # utime+stime jiffies; field 2 (comm) may contain spaces — split
+        # after the closing paren
+        with open(f"/proc/{pid}/stat") as f:
+            rest = f.read().rsplit(")", 1)[1].split()
+        return int(rest[11]) + int(rest[12])
+
+    def _sample(self) -> dict:
+        s = {"t": time.monotonic()}
+        s["cpu"] = self._read_cpu()
+        s["rss"] = self._read_rss()
+        s["cached"] = self._read_cached()
+        pids = {}
+        for label, plist in list(self._watch.items()):
+            total = 0
+            for p in plist:
+                try:
+                    v = self._read_pid_cpu(p)
+                    self._pid_last[p] = v
+                except (OSError, IndexError, ValueError):
+                    # pid exited: charge its last-seen cumulative so the
+                    # label's total never drops mid-window
+                    v = self._pid_last.get(p, 0)
+                total += v
+            pids[label] = total
+        s["pids"] = pids
+        try:
+            s["net"] = self._read_net()
+        except OSError:
+            s["net"] = 0
+        try:
+            s["disk"] = self._read_disk()
+        except OSError:
+            s["disk"] = 0
+        return s
+
+    def _loop(self):
+        cpu_gauge = gauge("host_cpu_busy_frac")
+        rss_gauge = gauge("host_rss_bytes")
+        prev = None
+        while not self._stop.is_set():
+            try:
+                s = self._sample()
+            except OSError as e:  # /proc went away: disable, don't spin
+                self._err = str(e)
+                return
+            self.samples.append(s)
+            if prev is not None:
+                db = sum(b for b, _ in s["cpu"]) - sum(
+                    b for b, _ in prev["cpu"])
+                dt = sum(t for _, t in s["cpu"]) - sum(
+                    t for _, t in prev["cpu"])
+                if dt > 0:
+                    cpu_gauge.set(round(db / dt, 4))
+            rss_gauge.set(s["rss"])
+            prev = s
+            self._stop.wait(self.interval_s)
+
+    def start(self) -> "HostResourceSampler":
+        """Take a first sample and start the sampling thread (no-op off
+        Linux: the first failed /proc read records the reason and every
+        summary reports ``unavailable``)."""
+        try:
+            self.samples.append(self._sample())
+        except OSError as e:
+            self._err = str(e)
+            return self
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="host-resource-sampler")
+        self._thread.start()
+        return self
+
+    def stop(self) -> dict:
+        """Stop sampling (one final sample) and return the whole-run
+        summary."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            try:
+                self.samples.append(self._sample())
+            except OSError:
+                pass
+        return self.summary()
+
+    def summary(self, t0: Optional[float] = None,
+                t1: Optional[float] = None) -> dict:
+        """Reduce the samples in ``[t0, t1]`` (monotonic; default: all)
+        to the envelope dict bench lanes record."""
+        if self._err is not None:
+            return {"unavailable": self._err}
+        window = [s for s in list(self.samples)
+                  if (t0 is None or s["t"] >= t0)
+                  and (t1 is None or s["t"] <= t1)]
+        if len(window) < 2:
+            return {"unavailable": "fewer than 2 samples in window"}
+        a, b = window[0], window[-1]
+        wall = b["t"] - a["t"]
+        ncores = max(len(a["cpu"]), 1)
+        per_core = []
+        for (b0, t0_), (b1, t1_) in zip(a["cpu"], b["cpu"]):
+            dt = t1_ - t0_
+            per_core.append(round((b1 - b0) / dt, 4) if dt > 0 else 0.0)
+        # peak = busiest consecutive interval (overall, all cores)
+        peak = 0.0
+        for p, s in zip(window, window[1:]):
+            db = sum(x for x, _ in s["cpu"]) - sum(x for x, _ in p["cpu"])
+            dt = sum(x for _, x in s["cpu"]) - sum(
+                x for _, x in p["cpu"])
+            if dt > 0:
+                peak = max(peak, db / dt)
+        # watched-process CPU seconds over the window
+        proc_cpu = {}
+        for label in b.get("pids", {}):
+            d = b["pids"].get(label, 0) - a.get("pids", {}).get(label, 0)
+            proc_cpu[label] = round(max(d, 0) / self._tick, 3)
+        out = {
+            "wall_s": round(wall, 3),
+            "samples": len(window),
+            "cpu_source": "stat",
+            "cpu_busy_frac": round(sum(per_core) / max(len(per_core), 1),
+                                   4),
+            "cpu_busy_frac_peak": round(peak, 4),
+            "cpu_per_core": per_core,
+            "ncores": ncores,
+            "proc_cpu_s": proc_cpu,
+            "rss_max_bytes": max(s["rss"] for s in window),
+            "page_cache_delta_bytes": b["cached"] - a["cached"],
+            "net_bytes": b["net"] - a["net"],
+            "net_bytes_per_sec": round((b["net"] - a["net"]) / wall, 1)
+            if wall > 0 else 0.0,
+            "disk_bytes": b["disk"] - a["disk"],
+        }
+        total_jiffies = (sum(t for _, t in b["cpu"])
+                         - sum(t for _, t in a["cpu"]))
+        if total_jiffies <= 0 and wall > 0:
+            # sandboxed /proc: the aggregate per-core clocks are zeroed
+            # while per-pid clocks tick — derive the busy fraction from
+            # the watched processes instead of reporting a false idle
+            out["cpu_source"] = "pids"
+            out["cpu_busy_frac"] = round(
+                min(sum(proc_cpu.values()) / (wall * ncores), 1.0), 4)
+            out.pop("cpu_per_core")
+            out.pop("cpu_busy_frac_peak")
+        return out
+
+    def section(self, name: str):
+        """Context manager: summarize the samples taken while the body
+        ran and stash the envelope under ``sections[name]``."""
+        sampler = self
+
+        class _Section:
+            def __enter__(self):
+                self.t0 = time.monotonic()
+                return sampler
+
+            def __exit__(self, *exc):
+                sampler.sections[name] = sampler.summary(
+                    self.t0, time.monotonic())
+                return False
+
+        return _Section()

@@ -233,3 +233,113 @@ def test_dp_union_files_follow_the_world_steps(tmp_path):
     _, first = cs.write_unions(data["text"], str(tmp_path / "f"), 512,
                                max_steps=2)
     assert len(first) == 2
+
+
+def test_telemetry_phase_and_rowblock_epochs_rehearsal(tmp_path, one_thread):
+    """The ``data`` phase's RowBlockIter epochs and the ``telemetry``
+    phase on the CPU at a small size: the shard cache's replay bit for
+    bit, the capture, the trace lined up with the step spans, the losses
+    equal to ``train``'s, the exposition's derived gauges equal to the
+    phase's own values. The CPU profiler records no device operation, so
+    the busy share is 0 and the one idle gap is the whole epoch."""
+    wd = str(tmp_path)
+    data = cs.write_higgs_files(wd, rows=4096)
+    rb = cs.rowblock_epochs(data["text"], str(tmp_path / "cache"))
+    assert rb["rows"] == 4096 and rb["nnz"] == 4096 * cs.FEATURES
+    assert rb["replay_bit_equal"] and rb["save_load_bit_equal"]
+    first, second = rb["epochs"]
+    assert first["cache"]["cache_transcodes_total"] == 1
+    assert second["cache"]["cache_hits_total"] == 1
+    assert first["pipeline_stats"]["blocks_delivered"] > 0
+    assert second["pipeline_stats"] is None  # the replay lane: no pipeline
+    run, _ = cs.train_phase(data["text"], device="cpu", rows=4096,
+                            batch_rows=1024)
+    tel = cs.telemetry_phase(data["text"], run["losses"], wd, device="cpu",
+                             rows=4096, batch_rows=1024)
+    assert tel["trace_clock"] == "wall" and tel["alignment_max_us"] < 2000
+    assert tel["stall_verdict"] in ("parse_bound", "stage_bound",
+                                    "consumer_bound", "fill_bound")
+    assert 0.0 <= tel["device_overlap_ratio"] <= 1.0
+    assert tel["device_busy_share"] == 0.0
+    (gap,) = tel["timeline"]["idle_gaps"]
+    assert gap["us"] == pytest.approx(tel["timeline"]["window_us"])
+    assert {"train.step", "device.stage"} <= set(gap["covered_by_us"])
+    assert tel["exposition"]["stall_verdict_code"] == \
+        cs.telemetry.VERDICT_CODES[tel["stall_verdict"]]
+
+
+def test_device_timeline_from_a_hand_made_trace():
+    """Busy share, top operations and idle gaps of a hand-made trace on
+    the spans' clock: two kernels overlapping, a memcpy, a host op that
+    does not count, and an event outside the window."""
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": cs.KERNEL_SYMBOL + "(int)",
+         "ts": 100, "dur": 50},
+        {"ph": "X", "cat": "kernel", "name": "elementwise", "ts": 120,
+         "dur": 60},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 400,
+         "dur": 100},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0,
+         "dur": 1000},
+        {"ph": "X", "cat": "kernel", "name": "late", "ts": 5000,
+         "dur": 10}]}
+    spans = [{"name": "device.wait", "ts": 1180, "dur": 200},
+             {"name": "train.step", "ts": 1000, "dur": 150},
+             {"name": "other", "ts": 1000, "dur": 9000}]
+    tl = cs.device_timeline(trace, 1000.0, 1000.0, 2000.0, spans)
+    assert tl["busy_us"] == 80 + 100 and tl["busy_share"] == 0.18
+    assert tl["kernel_launches"] == 1 and tl["device_events"] == 4
+    assert [o["name"] for o in tl["top_ops"]][:2] == ["Memcpy HtoD",
+                                                      "elementwise"]
+    assert [g["us"] for g in tl["idle_gaps"]] == [500, 220, 100]
+    assert tl["idle_gaps"][1]["covered_by_us"] == {"device.wait": 200}
+    assert tl["idle_gaps"][2]["covered_by_us"] == {"train.step": 100}
+
+
+def test_trace_clock_shift_detects_wall_and_monotonic():
+    anchors = {"start": {"wall_us": 5e15, "perf_us": 1e9},
+               "stop": {"wall_us": 5e15 + 1e6, "perf_us": 1e9 + 1e6}}
+    wall = {"baseTimeNanoseconds": 4e18,
+            "traceEvents": [{"ph": "X", "ts": 1e15 + 10, "dur": 1}]}
+    shift, clock = cs.trace_clock_shift_us(wall, anchors)
+    assert clock == "wall" and 1e15 + 10 + shift == pytest.approx(1e9 + 10)
+    mono = {"traceEvents": [{"ph": "X", "ts": 1e9 + 10, "dur": 1}]}
+    assert cs.trace_clock_shift_us(mono, anchors) == (0.0, "mono")
+    with pytest.raises(cs.CheckFailed, match="unknown clock"):
+        cs.trace_clock_shift_us(
+            {"traceEvents": [{"ph": "X", "ts": 7.0, "dur": 1}]}, anchors)
+
+
+def test_cluster_merge_in_a_two_rank_world(tmp_path):
+    """The ``dp`` phase's cluster half in a 2-rank gloo world on the CPU:
+    each rank ships ``rank_export()`` through ``allgather_bytes``; rank 0
+    holds every ``job:`` counter to the ranks' sums and gives a straggler
+    verdict over the ranks' step durations."""
+    data = cs.write_higgs_files(str(tmp_path), rows=2048)
+    task = {"name": "linear", "model": "linear", "uri": data["text"],
+            "features": cs.FEATURES, "batch_rows": 512}
+    res, _ = cs.run_dp_world(str(tmp_path), "two", 2, "gloo", "cpu", [task],
+                             cluster=True)
+    cluster = res[0]["cluster"]
+    assert res[1]["cluster"] == {}
+    assert cluster["ranks"] == [0, 1] and cluster["job_counters"] > 0
+    assert cluster["job_counters_equal_rank_sums"], cluster["mismatches"]
+    assert cluster["straggler"]["verdict"] in ("unknown", "straggler_bound")
+    assert set(cluster["straggler"]["median_us"]) == {"0", "1"}
+
+
+def test_cluster_check_catches_a_wrong_sum():
+    doc = {"metrics": {"counters": [{"name": "a_total", "labels": {},
+                                     "value": 2}],
+                       "gauges": [], "histograms": []}}
+    good = cs.cluster_check({0: doc, 1: doc}, {0: [1.0] * 3, 1: [1.0] * 3})
+    assert good["job_counters_equal_rank_sums"] and good["job_counters"] == 1
+    real = cs.telemetry.cluster_prometheus_text
+    try:
+        cs.telemetry.cluster_prometheus_text = lambda per_rank: real(
+            per_rank).replace("job:a_total 4", "job:a_total 5")
+        bad = cs.cluster_check({0: doc, 1: doc}, {})
+    finally:
+        cs.telemetry.cluster_prometheus_text = real
+    assert not bad["job_counters_equal_rank_sums"]
+    assert bad["mismatches"] == {"job:a_total{}": [5.0, 4]}

@@ -198,3 +198,42 @@ def test_garbage_env_refused(recorders, monkeypatch, env, exc, match):
     if exc is RuntimeError:  # the reference's own parse refuses the same
         with pytest.raises(RuntimeError, match=match):
             ref_dist.init_from_env()
+
+
+@pytest.mark.parametrize("size", [3, 4])
+def test_allreduce_is_the_rank_ordered_reduction(tmp_path, size):
+    """``allreduce`` in gloo worlds of 3 and 4 CPU ranks equals, bit for
+    bit, the reference's ``_reduce_stack`` over the rank-ordered stack
+    (the reference's host transport). With three or more ranks gloo's own
+    order of summation differs: ``1.0, 1e8, -1e8`` sums to 1.0 there and
+    to 0.0 in rank order."""
+    rng = np.random.default_rng(size)
+    cancel = [1.0, 1e8, -1e8] + [0.0] * (size - 3)
+    cases = {
+        "cancel": {"dtype": "float32", "values": [[v] for v in cancel]},
+        "cancel_late": {"dtype": "float32",
+                        "values": [[v] for v in cancel[1:] + cancel[:1]]},
+        "random": {"dtype": "float32", "values": (
+            rng.standard_normal((size, 4096)) * 10.0 ** rng.integers(
+                -3, 8, (size, 4096))).astype(np.float32).tolist()},
+        "ints": {"dtype": "int64",
+                 "values": rng.integers(-1000, 1000, (size, 7)).tolist()},
+        # one 0-d value a rank: the result stays 0-d, as the reference's
+        "scalar": {"dtype": "float32", "values": cancel},
+    }
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"cases": cases}))
+    outs = [tmp_path / f"out{r}.npz" for r in range(size)]
+    run_world(lambda r: worker_argv("allreduce", spec, outs[r]), size=size)
+    got = [dict(np.load(o)) for o in outs]
+    for name, case in cases.items():
+        stack = np.asarray(case["values"], dtype=case["dtype"])
+        for op in ("sum", "max", "min", "mean"):
+            want = ref_dist._reduce_stack(stack, op)
+            for r in range(size):
+                g = got[r][f"{name}/{op}"]
+                assert g.dtype == want.dtype and g.shape == want.shape
+                assert g.tobytes() == want.tobytes(), (name, op, r)
+    for r in range(size):
+        assert got[r]["cancel/sum"].tolist() == [0.0]
+        assert got[r]["cancel_late/sum"].tolist() == [1.0]

@@ -38,11 +38,12 @@ import dmlc_core_tpu_torch
 names = ["dmlc_core_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(dmlc_core_tpu_torch.__path__,
                                           "dmlc_core_tpu_torch.")]
-# the fourth and fifth slices' modules by name, so none can drop out
+# the fourth to sixth slices' modules by name, so none can drop out
 # unnoticed
 for mod in ("io.convert", "ops.ranking", "models.fm", "models.convert",
             "device.device_iter", "train", "parallel",
-            "parallel.distributed", "device.sharding"):
+            "parallel.distributed", "device.sharding", "data", "config",
+            "params", "registry", "utils.timer", "telemetry"):
     assert "dmlc_core_tpu_torch." + mod in names, mod
 for name in names:
     importlib.import_module(name)
@@ -60,7 +61,7 @@ def test_port_imports_without_jax_or_reference():
         capture_output=True, text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 35  # every module of the five slices
+    assert n >= 40  # every module of the six slices
 
 
 def test_port_sources_name_no_blocked_package():

@@ -14,6 +14,8 @@ runs where JAX is not installed. ``spec["device"]`` (default ``cpu``) and
 - ``dp``: learner steps on this rank's shard file of each case, with the
   step's collectives counted, and an epoch over a file whose parts hold
   different numbers of batches; an ``.npz`` result.
+- ``allreduce``: ``allreduce`` of each of ``spec["cases"]`` (this rank's
+  row of each case's values) under every op; an ``.npz`` result.
 - ``ckpt_mid``: the training CLI's first epoch that commits a job
   checkpoint after ``spec["k"]`` steps and goes on to the end of the
   epoch; a JSON result with the per-step losses.
@@ -169,6 +171,24 @@ def _collectives(spec, out):
         json.dump(res, f)
 
 
+def _allreduce(spec, out):
+    import numpy as np
+    import torch
+
+    from dmlc_core_tpu_torch.parallel import distributed as D
+
+    D.init_from_env(device="cpu")
+    me = D.rank()
+    res = {}
+    for name, case in spec["cases"].items():
+        mine = np.asarray(case["values"][me], dtype=case["dtype"])
+        for op in ("sum", "max", "min", "mean"):
+            got = D.allreduce(torch.from_numpy(mine), op)
+            res[f"{name}/{op}"] = got.numpy()
+    D.shutdown()
+    np.savez(out, **res)
+
+
 def _learner(case, mesh, device):
     from dmlc_core_tpu_torch.models.fm import FMLearner
     from dmlc_core_tpu_torch.models.linear import LinearLearner
@@ -297,7 +317,8 @@ def main() -> None:
     torch.set_num_threads(1)
     with open(spec_path) as f:
         spec = json.load(f)
-    {"collectives": _collectives, "dp": _dp, "ckpt_mid": _ckpt_mid}[mode](
+    {"collectives": _collectives, "dp": _dp, "ckpt_mid": _ckpt_mid,
+     "allreduce": _allreduce}[mode](
         spec, out)
 
 
