@@ -116,6 +116,32 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  prints the ``straggler_attribution`` verdict over the
                  ranks' step durations. One card: the 2-rank worlds
                  measure the code path, not NCCL between cards.
+10. ``job``    — the distributed job under the port's tracker: the
+                 ``train`` phase's file uploaded through the native
+                 stream to a loopback mock S3 in this process
+                 (``tests/mock_s3.py``), then two runs of
+                 ``python -m dmlc_core_tpu_torch.tracker.submit --cluster
+                 local --num-workers 2 --heartbeat-ms 200 --dead-after-ms
+                 2000`` whose workers are this script (``job-*-worker``
+                 modes) on the card, reading ``s3://``. Run A
+                 (``--num-shards 16``): ``ElasticDeviceRowBlockIter`` at
+                 16,384 rows a batch, a dense-margin step a batch; task 0
+                 SIGKILLs itself holding its second lease and the
+                 supervisor relaunches it; every shard completed exactly
+                 once, each shard's batches bit for bit those of the local
+                 file's ``part=shard, npart=16`` (sha256 of the planes),
+                 the event log showing the victim dead and its shard
+                 granted again. Run B (``--mesh``): a gloo world of two
+                 ranks, 8 steps of a 65,536-row global batch under a
+                 ``StepWatchdog``, job checkpoints on ``s3://`` after steps
+                 2, 4, 6; rank 1 SIGKILLs itself in step 5 of attempt 0,
+                 the survivor's structured abort (exit 41, abort record)
+                 within 2 x dead-after, the world relaunched, attempt 1
+                 from step 4; the 8 losses against one process on the
+                 union batches at rtol 1e-5, step 4's loss of both attempts
+                 bit for bit. Kill -> re-grant, kill -> survivor exit,
+                 the relaunch gap, rows/s, shard start cost and the
+                 largest heartbeat age the tracker reported.
 
 Each configuration keeps its published widths; row counts are cut, and
 each phase's JSON names the cut (``reduced``).
@@ -130,6 +156,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import hashlib
 import http.client
 import io
 import json
@@ -143,6 +170,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -2298,9 +2326,603 @@ def dp_phase(workdir: str, data: dict, main_run: dict,
     return out
 
 
+# -- job: the tracker, elastic leases over s3://, a world relaunch ------------
+JOB_SHARDS = 16          # run A: 32,768 rows a shard at the full size
+JOB_ELASTIC_BATCH = 16384
+JOB_STEPS = 8            # run B: steps of the world's global batch
+JOB_KILL_STEP = 5        # attempt 0's rank 1 SIGKILLs itself in this step
+JOB_CKPT_STEPS = (2, 4, 6)
+JOB_HB_MS = 200
+JOB_DEAD_MS = 2000
+JOB_GRACE_MS = 500       # run A: nobody recovers; the write-off is the path
+JOB_TIMEOUT_S = 300      # each submit's own limit
+JOB_BUCKET = "chip-smoke"
+
+
+def planes_sha(batch, h) -> None:
+    """Fold a batch's leaves, copied to the host, into the sha256 ``h``."""
+    for name, t in sorted(batch.tree().items()):
+        h.update(name.encode())
+        h.update(t.cpu().numpy().tobytes())
+
+
+def write_json(path: str, obj) -> None:
+    """One fsync'd JSON document (a worker's record survives its kill)."""
+    with open(path, "w") as f:
+        json.dump(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def tracker_note(scratch: str) -> None:
+    """Where this world's tracker listens, for the phase's /state poll."""
+    write_json(os.path.join(scratch, "tracker.json"),
+               {"host": os.environ["DMLC_TRACKER_URI"],
+                "port": int(os.environ["DMLC_TRACKER_PORT"])})
+
+
+def job_elastic_worker(spec_path: str) -> int:
+    """A worker of run A (``chip_smoke.py job-elastic-worker SPEC``): joins
+    the rendezvous with heartbeats and steps ``LinearLearner(dense)`` on
+    every batch of the shards the tracker grants it, through
+    ``ElasticDeviceRowBlockIter`` over the ``s3://`` file. Each finished
+    shard is one fsync'd JSON line (shard, sha256 of its batches' planes,
+    rows, the pipeline's start cost). The victim (task 0, first attempt)
+    finishes one shard, acquires a second and SIGKILLs itself holding its
+    lease. A relaunched worker cannot rejoin the running world through the
+    link dance (the reference's recovery is two-sided), so it waits on
+    the tracker's /state until its old rank is written off, and leaves."""
+    from dmlc_core_tpu_torch.tracker.client import RendezvousClient
+    from dmlc_core_tpu_torch.tracker.wire import env_int
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec["device"] == "cpu":
+        torch.set_num_threads(1)  # beside the parser's spinning workers
+    scratch, task = spec["scratch"], env_int("DMLC_TASK_ID", 0)
+    host = os.environ["DMLC_TRACKER_URI"]
+    port = env_int("DMLC_TRACKER_PORT", 9091)
+    rank_file = os.path.join(scratch, f"rank_{task}")
+    if env_int("DMLC_NUM_ATTEMPT", 0) > 0:
+        t0 = time.time()
+        with open(rank_file) as f:
+            old_rank = int(f.read())
+        phase = tracker_rank_phase(host, port, old_rank)
+        write_json(os.path.join(scratch, f"relaunched_{task}.json"),
+                   {"task": task, "saw": phase, "started_ts": t0,
+                    "left_ts": time.time()})
+        return 0
+    hk.reset_launch_counts()
+    client = RendezvousClient(host, port)
+    assign = client.start(heartbeat=True)
+    with open(rank_file, "w") as f:
+        f.write(str(assign.rank))
+    tracker_note(scratch)
+    lrn = LinearLearner(FEATURES, margin_path="dense", device=spec["device"])
+    params = lrn.init()
+    it = device_iter.ElasticDeviceRowBlockIter(
+        spec["uri"], batch_rows=spec["batch_rows"], layout="csr",
+        device=spec["device"], acquire_timeout=120)
+    out = open(os.path.join(scratch, f"consumed_{task}.jsonl"), "a")
+    rec = None
+    waited_from = time.perf_counter()
+    for shard, batch in it:
+        if rec is None or shard != rec["shard"]:
+            start_s = time.perf_counter() - waited_from
+            if rec is not None:
+                out.write(json.dumps(rec | {"sha": h.hexdigest()}) + "\n")
+                out.flush()
+                os.fsync(out.fileno())
+            if task == spec["victim_task"] and rec is not None:
+                write_json(os.path.join(scratch, "victim.json"),
+                           {"shard": shard, "rank": assign.rank,
+                            "launches": hk.csr_to_dense_kernel.launches,
+                            "kill_ts": time.time()})
+                os.kill(os.getpid(), signal.SIGKILL)
+            rec = {"shard": shard, "task": task, "rank": assign.rank,
+                   "rows": 0, "batches": 0, "start_s": start_s}
+            h = hashlib.sha256()
+        planes_sha(batch, h)
+        params, loss = lrn.step(params, batch)
+        float(loss)  # synchronizes the step
+        rec["rows"] += batch.total_rows
+        rec["batches"] += 1
+        waited_from = time.perf_counter()
+    if rec is not None:
+        out.write(json.dumps(rec | {"sha": h.hexdigest()}) + "\n")
+    out.close()
+    write_json(os.path.join(scratch, f"summary_{task}.json"),
+               {"task": task, "rank": assign.rank,
+                "launches": hk.csr_to_dense_kernel.launches})
+    client.shutdown(assign.rank)
+    return 0
+
+
+def tracker_rank_phase(host: str, port: int, rank: int,
+                       timeout: float = 120.0) -> str:
+    """Poll the tracker's /state until ``rank`` is written off (``lost``)
+    or the job is over; what was seen (``tracker-gone`` once the tracker
+    stopped answering)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        st = tracker_state(host, port)
+        if st is None:
+            return "tracker-gone"
+        phase = st["ranks"].get(str(rank), {}).get("phase")
+        if phase == "lost" or st.get("finished"):
+            return phase
+        time.sleep(0.1)
+    raise CheckFailed(f"rank {rank} was not written off in {timeout} s")
+
+
+def tracker_state(host: str, port: int) -> "dict | None":
+    """The tracker's /state document, or None when it does not answer."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://{host}:{port}/state",
+                                    timeout=5) as r:
+            return json.load(r)
+    except (urllib.error.URLError, OSError, ValueError):
+        return None
+
+
+def job_mesh_worker(spec_path: str) -> int:
+    """A rank of run B (``chip_smoke.py job-mesh-worker SPEC``): a gloo
+    world sharing the card, joined to the rendezvous, stepping the
+    data-parallel ``LinearLearner(dense)`` on its part of the ``s3://``
+    file under a ``StepWatchdog``, with a job checkpoint (parameters and
+    iterator position, on ``s3://``) after steps 2, 4 and 6. It resumes
+    from the last committed one. In attempt 0, rank 1 SIGKILLs itself in
+    step 5. A gloo error from the dead peer, the tracker's abort and the
+    supervisor's SIGTERM all end in the same structured abort: the abort
+    record, the flight dump naming the rank, an exit record and exit 41
+    (the record names which came first)."""
+    from dmlc_core_tpu_torch.device.sharding import data_mesh
+    from dmlc_core_tpu_torch.parallel import (STEP_ABORT_EXIT, StepWatchdog,
+                                              distributed, structured_abort)
+    from dmlc_core_tpu_torch.tracker.client import RendezvousClient
+    from dmlc_core_tpu_torch.tracker.wire import TrackerAbortedError, env_int
+    from dmlc_core_tpu_torch.utils.checkpoint import (
+        commit_job_checkpoint, restore_job_checkpoint, save_job_checkpoint)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec["device"] == "cpu":
+        torch.set_num_threads(1)  # beside the parser's spinning workers
+    scratch = spec["scratch"]
+    attempt = env_int("DMLC_WORLD_ATTEMPT", 0)
+    distributed.init_from_env(device=spec["device"], backend="gloo")
+    client = RendezvousClient(os.environ["DMLC_TRACKER_URI"],
+                              env_int("DMLC_TRACKER_PORT", 9091))
+    assign = client.start(heartbeat=True)
+    tracker_note(scratch)
+    mesh = data_mesh(spec["device"])
+    rank, size = mesh.rank, mesh.size
+    hk.reset_launch_counts()
+    lrn = LinearLearner(FEATURES, margin_path="dense", mesh=mesh)
+    params, start = lrn.init(), 0
+    it = device_iter.DeviceRowBlockIter(
+        spec["uri"], part=rank, npart=size, batch_rows=spec["batch_rows"],
+        mesh=mesh, layout="csr")
+    got = restore_job_checkpoint(spec["job"], rank, size, like=params)
+    if got is not None:
+        params, start, extra = got
+        it.restore(json.loads(extra["iter"]))
+    log = open(os.path.join(scratch, f"steps_a{attempt}_r{rank}.jsonl"), "a")
+    wd = StepWatchdog(rank=rank, drains=[it.abort_drain]).start()
+    step = start
+
+    leaving = threading.Lock()  # held by the one abort that runs
+
+    def leave(cause: str, reason: str) -> None:
+        # one abort, named by whatever took the lock first: a SIGTERM
+        # whose handler runs while an earlier cause drains returns here,
+        # and one that runs before it has taken the lock exits the
+        # process itself, so the earlier cause never resumes
+        if not leaving.acquire(blocking=False):
+            return
+        structured_abort(f"{cause}: rank {rank} at step {step}: {reason}",
+                         drains=[it.abort_drain], rank=rank)
+        write_json(os.path.join(scratch, f"exit_a{attempt}_r{rank}.json"),
+                   {"cause": cause, "code": STEP_ABORT_EXIT,
+                    "ts": time.time(), "rank": rank, "step": step})
+        os._exit(STEP_ABORT_EXIT)
+
+    signal.signal(signal.SIGTERM, lambda *_: leave(
+        "sigterm", "the supervisor is tearing the world down"))
+    stream = iter(it)
+    try:
+        for step in range(start, spec["steps"]):
+            wd.step_begin(step)
+            if attempt == 0 and rank == 1 and step == spec["kill_step"]:
+                write_json(os.path.join(scratch, "victim.json"),
+                           {"rank": rank, "step": step,
+                            "kill_ts": time.time()})
+                os.kill(os.getpid(), signal.SIGKILL)
+            batch = next(stream)
+            t_begin = time.time()
+            params, loss = lrn.step(params, batch)
+            loss = float(loss)  # synchronizes the step
+            t_end = time.time()
+            wd.step_end()
+            log.write(json.dumps({
+                "attempt": attempt, "rank": rank, "step": step,
+                "loss": loss, "t_begin": t_begin, "t_end": t_end,
+                "launches": hk.csr_to_dense_kernel.launches}) + "\n")
+            log.flush()
+            if step + 1 in spec["ckpt_steps"]:
+                save_job_checkpoint(spec["job"], params, step + 1, rank,
+                                    size, extra={"iter": json.dumps(
+                                        it.state())})
+                distributed.barrier()
+                if rank == 0:
+                    commit_job_checkpoint(spec["job"], step + 1, size)
+    except RuntimeError as e:  # TrackerAbortedError is one
+        leave("tracker-abort" if isinstance(e, TrackerAbortedError)
+              else "collective-error", str(e))
+    finally:
+        wd.stop()
+    log.close()
+    it.close()
+    client.shutdown(assign.rank)
+    distributed.shutdown()
+    return 0
+
+
+class StatePoll(threading.Thread):
+    """Samples the tracker's /state every 50 ms while a submit runs: the
+    ranks' heartbeat ages as the tracker sees them (sample time, tracker
+    port, rank, phase, age)."""
+
+    def __init__(self, scratch: str):
+        super().__init__(daemon=True)
+        self.path = os.path.join(scratch, "tracker.json")
+        self.samples = []
+        self.stop = threading.Event()
+
+    def run(self) -> None:
+        while not self.stop.wait(0.05):
+            try:
+                with open(self.path) as f:
+                    where = json.load(f)
+            except (OSError, ValueError):
+                continue
+            st = tracker_state(where["host"], where["port"])
+            now = time.time()
+            for r, info in ((st or {}).get("ranks") or {}).items():
+                if info.get("last_heartbeat_age_s") is not None:
+                    self.samples.append((now, where["port"], int(r),
+                                         info["phase"],
+                                         info["last_heartbeat_age_s"]))
+
+
+def run_submit(scratch: str, worker_mode: str, spec: dict, flags: list,
+               events: str) -> "tuple[float, list]":
+    """``python -m dmlc_core_tpu_torch.tracker.submit --cluster local``
+    with two workers of this script in ``worker_mode``, under its own
+    timeout; every process it started is gone when this returns. Returns
+    the wall seconds and the /state samples."""
+    spec_path = os.path.join(scratch, "spec.json")
+    write_json(spec_path, spec)
+    script = os.path.abspath(__file__)
+    cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit",
+           "--cluster", "local", "--num-workers", "2", "--heartbeat-ms",
+           str(JOB_HB_MS), "--dead-after-ms", str(JOB_DEAD_MS), *flags,
+           "--", sys.executable, script, worker_mode, spec_path]
+    env = dict(os.environ, DCT_CSR_TO_DENSE="pallas",
+               DMLC_TRACKER_EVENT_LOG=events,
+               DMLC_ABORT_RECORD=os.path.join(scratch, "abort.jsonl"),
+               DMLC_TRACE_DUMP=os.path.join(scratch, "dumps"),
+               PYTHONPATH=os.path.dirname(script))
+    os.makedirs(env["DMLC_TRACE_DUMP"], exist_ok=True)
+    poll = StatePoll(scratch)
+    poll.start()
+    t0 = time.perf_counter()
+    with open(os.path.join(scratch, "submit.log"), "w") as log:
+        proc = subprocess.Popen(cmd, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=JOB_TIMEOUT_S)
+            # a relaunched worker may outlive the submit: let the session
+            # empty on its own for a while
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                os.killpg(proc.pid, 0)
+                time.sleep(0.1)
+        except subprocess.TimeoutExpired:
+            rc = None
+        except ProcessLookupError:
+            pass
+        finally:
+            # the submit, its workers and any straggler: one session
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    poll.stop.set()
+    poll.join()
+    with open(os.path.join(scratch, "submit.log")) as f:
+        tail = f.read()[-3000:]
+    require(rc == 0, f"{worker_mode}: submit failed", rc=rc, log=tail)
+    return seconds, poll.samples
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def read_events(path: str) -> list:
+    return read_jsonl(path) if os.path.exists(path) else []
+
+
+def largest_gap(samples: list, skip) -> "float | None":
+    """Largest heartbeat age the tracker reported for a live rank, in ms,
+    over the /state samples for which ``skip(t, rank)`` is false (a killed
+    rank's, or a dead world's, samples do not count)."""
+    ages = [age for t, _, r, phase, age in samples
+            if phase == "alive" and not skip(t, r)]
+    return 1e3 * max(ages) if ages else None
+
+
+def upload(src: str, uri: str) -> float:
+    """Copy ``src`` to ``uri`` through the port's native stream; seconds."""
+    t0 = time.perf_counter()
+    with open(src, "rb") as f, native.NativeStream(uri, "w") as out:
+        while True:
+            chunk = f.read(8 << 20)
+            if not chunk:
+                break
+            out.write(chunk)
+    return time.perf_counter() - t0
+
+
+def job_run_a(workdir: str, data: dict, uri: str, device: str,
+              batch_rows: int) -> dict:
+    """Run A: the elastic data plane (see :func:`job_elastic_worker`)."""
+    scratch = os.path.join(workdir, "job_a")
+    os.makedirs(scratch)
+    events = os.path.join(scratch, "events.jsonl")
+    seconds, samples = run_submit(
+        scratch, "job-elastic-worker",
+        {"uri": uri, "device": device, "batch_rows": batch_rows,
+         "scratch": scratch, "victim_task": 0},
+        ["--num-attempt", "1", "--recover-grace-ms", str(JOB_GRACE_MS),
+         "--num-shards", str(JOB_SHARDS)], events)
+    with open(os.path.join(scratch, "victim.json")) as f:
+        victim = json.load(f)
+    done = []
+    for task in (0, 1):
+        path = os.path.join(scratch, f"consumed_{task}.jsonl")
+        done += read_jsonl(path) if os.path.exists(path) else []
+    shards = sorted(r["shard"] for r in done)
+    require(shards == list(range(JOB_SHARDS)),
+            "run A: every shard completed exactly once", shards=shards)
+    # the same shards read from the local file in this process
+    want = {}
+    for shard in range(JOB_SHARDS):
+        h = hashlib.sha256()
+        with device_iter.DeviceRowBlockIter(
+                data["text"], part=shard, npart=JOB_SHARDS,
+                batch_rows=batch_rows, layout="csr", device=device) as it:
+            for b in it:
+                planes_sha(b, h)
+        want[shard] = h.hexdigest()
+    bad = [r["shard"] for r in done if r["sha"] != want[r["shard"]]]
+    require(not bad, "run A: shard batches differ from the local file's",
+            shards=bad)
+    ev = read_events(events)
+    vr, held = victim["rank"], victim["shard"]
+    require([r["task"] for r in done if r["shard"] == held] == [1],
+            "run A: the victim's held shard completed by the other task",
+            victim=victim)
+
+    def first(kind: str, **match) -> "dict | None":
+        return next((e for e in ev if e["event"] == kind and all(
+            e.get(k) == v for k, v in match.items())), None)
+
+    dead, lost = first("dead", rank=vr), first("lost", rank=vr)
+    reclaim = first("lease-reclaim", rank=vr, shard=held)
+    regrant = [e for e in ev if e["event"] == "lease-grant"
+               and e["shard"] == held and e["ts"] > victim["kill_ts"]]
+    require(dead and lost and reclaim and regrant
+            and regrant[0]["rank"] != vr
+            and dead["ts"] <= lost["ts"] <= reclaim["ts"]
+            <= regrant[0]["ts"],
+            "run A: the event log shows the victim dead, written off, its "
+            "lease reclaimed and its shard granted again, in that order",
+            victim=victim, dead=dead, lost=lost, reclaim=reclaim,
+            regrant=regrant)
+    grants = [e["ts"] for e in ev if e["event"] == "lease-grant"]
+    drained = [e["ts"] for e in ev if e["event"] == "epoch-drained"]
+    # how long the pool stood empty before the victim's shard came back
+    last_done = max(e["ts"] for e in ev if e["event"] == "lease-complete"
+                    and e["ts"] < regrant[0]["ts"])
+    rows = sum(r["rows"] for r in done)
+    require(rows == data["rows"], "run A: rows", rows=rows)
+    relaunched = []
+    for name in sorted(os.listdir(scratch)):
+        if name.startswith("relaunched_"):
+            with open(os.path.join(scratch, name)) as f:
+                relaunched.append(json.load(f))
+    require(len(relaunched) == 1 and relaunched[0]["task"] == 0,
+            "run A: the supervisor relaunched the victim's task",
+            relaunched=relaunched)
+    # a relaunch that polled /state while the epoch still ran must have
+    # seen its old rank written off; one that came later finds the job over
+    relaunch = relaunched[0]
+    require(relaunch["saw"] == "lost"
+            or relaunch["started_ts"] >= drained[0],
+            "run A: the relaunch during the job saw its rank written off",
+            relaunch=relaunch, drained=drained[0])
+    launches = victim["launches"]
+    per_task = {}
+    for task in (0, 1):
+        path = os.path.join(scratch, f"summary_{task}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                launches += json.load(f)["launches"]
+        per_task[task] = sorted(r["shard"] for r in done
+                                if r["task"] == task)
+    if device == "cuda":
+        require(launches == sum(r["batches"] for r in done),
+                "run A: a launch a step", launches=launches)
+    starts = [r["start_s"] for r in done]
+    return {"seconds": seconds, "shards_per_task": per_task,
+            "victim": {"task": 0, "rank": vr, "held_shard": held},
+            "relaunch": relaunch["saw"],
+            "relaunch_start_after_kill_ms": 1e3 * (relaunch["started_ts"]
+                                                   - victim["kill_ts"]),
+            "relaunch_start_after_drain_ms": 1e3 * (relaunch["started_ts"]
+                                                    - drained[0]),
+            "rows": rows, "rows_per_s": rows / (drained[0] - grants[0]),
+            "kill_to_regrant_ms": 1e3 * (regrant[0]["ts"]
+                                         - victim["kill_ts"]),
+            "pool_empty_before_regrant_ms": 1e3 * (regrant[0]["ts"]
+                                                   - last_done),
+            "shard_start_ms": {"median": 1e3 * statistics.median(starts),
+                               "max": 1e3 * max(starts)},
+            "largest_heartbeat_gap_ms": largest_gap(
+                samples, lambda t, r: r == vr and t >= victim["kill_ts"]),
+            "state_samples": len(samples), "launches": launches}
+
+
+def job_run_b(workdir: str, data: dict, uri: str, device: str,
+              batch_rows: int) -> dict:
+    """Run B: the mesh world, its SIGKILLed rank and the whole-world
+    relaunch (see :func:`job_mesh_worker`), against one process stepping
+    on the union batches."""
+    scratch = os.path.join(workdir, "job_b")
+    os.makedirs(scratch)
+    events = os.path.join(scratch, "events.jsonl")
+    seconds, samples = run_submit(
+        scratch, "job-mesh-worker",
+        {"uri": uri, "device": device, "batch_rows": batch_rows,
+         "scratch": scratch, "job": f"s3://{JOB_BUCKET}/job",
+         "steps": JOB_STEPS, "kill_step": JOB_KILL_STEP,
+         "ckpt_steps": list(JOB_CKPT_STEPS)}, ["--mesh"], events)
+    with open(os.path.join(scratch, "victim.json")) as f:
+        victim = json.load(f)
+    steps = {(a, r): read_jsonl(os.path.join(scratch,
+                                             f"steps_a{a}_r{r}.jsonl"))
+             for a in (0, 1) for r in (0, 1)}
+    for r in (0, 1):
+        require([s["step"] for s in steps[0, r]] == list(range(
+            JOB_KILL_STEP)) and [s["step"] for s in steps[1, r]] ==
+            list(range(JOB_CKPT_STEPS[1], JOB_STEPS)),
+            "run B: steps of each attempt", rank=r,
+            a0=[s["step"] for s in steps[0, r]],
+            a1=[s["step"] for s in steps[1, r]])
+    # the survivor: rank 0 of attempt 0
+    with open(os.path.join(scratch, "exit_a0_r0.json")) as f:
+        survivor = json.load(f)
+    records = read_jsonl(os.path.join(scratch, "abort.jsonl"))
+    dumps = []
+    for name in os.listdir(os.path.join(scratch, "dumps")):
+        with open(os.path.join(scratch, "dumps", name)) as f:
+            doc = json.load(f)
+        dumps.append((doc["reason"].split(":")[0], doc["rank"]))
+    require(("mesh-abort", 0) in dumps, "run B: the survivor's flight "
+            "dump naming its rank", dumps=dumps)
+    kill_to_exit = 1e3 * (survivor["ts"] - victim["kill_ts"])
+    require(survivor["code"] == 41
+            and [rec["rank"] for rec in records] == [0]
+            and 0 <= kill_to_exit <= 2 * JOB_DEAD_MS,
+            "run B: the survivor's one structured abort within 2 x "
+            "dead-after",
+        survivor=survivor, records=records, kill_to_exit_ms=kill_to_exit)
+    losses = [s["loss"] for s in steps[0, 0]] + \
+        [s["loss"] for s in steps[1, 0][1:]]
+    step4 = (steps[0, 0][JOB_CKPT_STEPS[1]]["loss"],
+             steps[1, 0][0]["loss"])
+    require(step4[0] == step4[1], "run B: the step-4 loss of both "
+            "attempts bit for bit", step4=step4)
+    require(all([s["loss"] for s in steps[a, 0]] ==
+                [s["loss"] for s in steps[a, 1]] for a in (0, 1)),
+            "run B: the ranks' losses differ")
+    _, files = write_unions(data["text"],
+                            os.path.join(workdir, "job_union_"),
+                            batch_rows // DP_RANKS, JOB_STEPS)
+    lrn = LinearLearner(FEATURES, margin_path="dense", device=device)
+    _, want = union_run(files, lrn, lrn.init(), batch_rows, device)
+    la, lb = np.asarray(losses), np.asarray(want)
+    require(la.shape == lb.shape and np.allclose(la, lb, rtol=1e-5, atol=0),
+            "run B: losses against the union run at rtol 1e-5",
+            got=losses, want=want)
+    ev = read_events(events)
+    launches = sum(s[-1]["launches"] for s in steps.values())
+    if device == "cuda":
+        require(launches == sum(len(s) for s in steps.values()),
+                "run B: a launch a step on every rank", launches=launches)
+    a1_first = min(s[0]["t_begin"] for k, s in steps.items() if k[0] == 1)
+    return {"seconds": seconds, "losses": losses, "union_losses": want,
+            "loss_max_rel": float(np.max(np.abs(la - lb) / np.abs(lb))),
+            "step4_bit_equal": True, "survivor_cause": survivor["cause"],
+            "abort_reasons": [rec["reason"] for rec in records],
+            "kill_to_survivor_exit_ms": kill_to_exit,
+            "survivor_exit_to_attempt1_step_ms":
+                1e3 * (a1_first - survivor["ts"]),
+            "step_ms_median": {a: 1e3 * statistics.median(
+                s["t_end"] - s["t_begin"] for r in (0, 1)
+                for s in steps[a, r]) for a in (0, 1)},
+            "world_relaunches": sum(e["event"] == "abort" for e in ev),
+            "largest_heartbeat_gap_ms": largest_gap(
+                samples, lambda t, r: victim["kill_ts"] <= t <= a1_first),
+            "state_samples": len(samples),
+            "launches": launches}
+
+
+def job_phase(workdir: str, data: dict) -> dict:
+    """The distributed job on the card: the ``train`` phase's file uploaded
+    to a loopback mock S3 started in this process, then two runs of the
+    port's ``tracker.submit --cluster local`` with two workers reading it
+    from ``s3://`` (:func:`job_run_a`, :func:`job_run_b`)."""
+    # the loopback S3 the tests use; a package named ``tests`` installed
+    # elsewhere must not shadow this checkout's
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if here not in list(getattr(sys.modules.get("tests"), "__path__", [])):
+        sys.modules["tests"] = types.ModuleType("tests")
+        sys.modules["tests"].__path__ = [here]
+    from tests import mock_s3
+    state, port, shutdown = mock_s3.serve()
+    os.environ.update(S3_ENDPOINT=f"http://127.0.0.1:{port}",
+                      S3_ACCESS_KEY_ID=mock_s3.ACCESS_KEY,
+                      S3_SECRET_ACCESS_KEY=mock_s3.SECRET_KEY,
+                      S3_REGION=mock_s3.REGION)
+    try:
+        uri = f"s3://{JOB_BUCKET}/higgs_like.libsvm"
+        upload_s = upload(data["text"], uri)
+        with open(data["text"], "rb") as f:
+            require(state.objects[(JOB_BUCKET, "higgs_like.libsvm")]
+                    == f.read(), "s3 upload bytes")
+        a = job_run_a(workdir, data, uri, "cuda", JOB_ELASTIC_BATCH)
+        b = job_run_b(workdir, data, uri, "cuda", BATCH_ROWS)
+    finally:
+        shutdown()
+    out = {"phase": "job", "device": "cuda", "rows": data["rows"],
+           "uri": uri, "upload_s": upload_s, "shards": JOB_SHARDS,
+           "elastic_batch_rows": JOB_ELASTIC_BATCH,
+           "mesh_batch_rows": BATCH_ROWS,
+           "heartbeat_ms": JOB_HB_MS, "dead_after_ms": JOB_DEAD_MS,
+           "run_a": a, "run_b": b,
+           "card": "one card: both workers of each run share it; run B's "
+           "world runs on gloo (NCCL refuses two ranks on one card)",
+           "reduced": {"workers": 2, "mesh_steps": JOB_STEPS},
+           "launches": {"csr_to_dense": a["launches"] + b["launches"]}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["dp-worker"]:
         return dp_worker(*sys.argv[2:4])
+    if sys.argv[1:2] == ["job-elastic-worker"]:
+        return job_elastic_worker(sys.argv[2])
+    if sys.argv[1:2] == ["job-mesh-worker"]:
+        return job_mesh_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA GPU", file=sys.stderr)
@@ -2341,6 +2963,7 @@ def main() -> int:
         fm_phase(workdir, data)
         rank_phase(workdir, data)
         dp = dp_phase(workdir, data, run, params)
+        job = job_phase(workdir, data)
 
     main_case = cases["train_65536x28"]
     emit({"kernels": [{
@@ -2351,7 +2974,8 @@ def main() -> int:
         "launches": (run["launches"]["csr_to_dense"]
                      + tel["launches"]["csr_to_dense"]
                      + lanes["launches"]["csr_to_dense"]
-                     + dp["launches"]["csr_to_dense"]),
+                     + dp["launches"]["csr_to_dense"]
+                     + job["launches"]["csr_to_dense"]),
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3,

@@ -21,9 +21,10 @@ As in the reference:
   (``DMLC_ELASTIC_SHARDS=1`` or ``?elastic=1`` through
   ``RowBlockIter.create``), with the same shard order for the same
   ``(num_shards, shuffle_window, run_id, epoch)``. Its lease source is
-  :class:`LocalLeases`: the tracker's heartbeat monitor, the reference's
-  default source, is not ported yet (ROADMAP.md queue 1, item 4), so
-  elastic mode without ``leases=`` raises.
+  the process's tracker heartbeat monitor
+  (``tracker.client.current_monitor()``, opened by
+  ``RendezvousClient.start(heartbeat=True)``) unless ``leases=`` names
+  another, such as a :class:`LocalLeases` for one host.
 """
 
 from __future__ import annotations
@@ -499,9 +500,8 @@ class RowBlockIter:
         switches to lease-driven iteration and returns an
         :class:`ElasticRowBlockIter` consuming granted shards
         (``num_shards`` / ``?num_shards=`` / ``DMLC_TRACKER_NUM_SHARDS``)
-        from ``leases``, which must be given (a :class:`LocalLeases`):
-        the reference's default, the process's tracker heartbeat
-        monitor, is not ported yet. The env opt-in only applies to calls with the
+        with ``leases`` defaulting to the process's active
+        HeartbeatMonitor. The env opt-in only applies to calls with the
         default ``part=0, npart=1`` — an explicit static split (a side
         dataset opened with its own ``part``/``npart``) stays static
         rather than silently joining the tracker's one shard pool; the
@@ -550,11 +550,13 @@ class RowBlockIter:
         if run_id is None and "run_id" in uri_args:
             run_id = _uri_int(uri_args, "run_id")
         if leases is None:
-            raise DMLCError(
-                "elastic mode needs a lease source: pass "
-                "leases=LocalLeases(num_shards); the tracker's heartbeat "
-                "monitor is not ported yet (ROADMAP.md queue 1, item 4, "
-                "the job tracker and elastic training)")
+            from dmlc_core_tpu_torch.tracker.client import current_monitor
+            leases = current_monitor()
+            if leases is None:
+                raise DMLCError(
+                    "elastic mode needs a lease source: join a rendezvous "
+                    "with heartbeats (RendezvousClient.start) or pass "
+                    "leases=LocalLeases(num_shards)")
         return ElasticRowBlockIter(
             _strip_uri_args(uri, _ELASTIC_URI_KEYS), leases, num_shards,
             fmt=fmt, nthread=nthread, index64=index64, epoch=epoch,

@@ -48,6 +48,10 @@ never recycled, because the consumer's tensors still read them.
 the body with ``torch.profiler`` (the card's kernels, copies and memsets
 beside the host's rows) and writes the clock anchors that put that trace
 on the telemetry spans' timeline.
+
+:class:`ElasticDeviceRowBlockIter` feeds the card from tracker shard
+leases: each granted shard becomes a :class:`DeviceRowBlockIter` over
+``part=shard, npart=num_shards``.
 """
 
 from __future__ import annotations
@@ -72,11 +76,12 @@ from dmlc_core_tpu_torch.io.native import (BF16_STORAGE, NativeBatcher,
                                            NativeCsrRecBatcher,
                                            NativeDenseRecBatcher,
                                            NativeParser, bf16_bits)
-from dmlc_core_tpu_torch.tracker.wire import env_int
+from dmlc_core_tpu_torch.tracker.wire import TrackerAbortedError, env_int
 
 __all__ = ["PaddedBatch", "DenseBatch", "DeviceRowBlockIter", "HostBatcher",
            "NativeHostBatcher", "CsrRecHostBatcher", "DenseRecHostBatcher",
-           "unpack_tree", "unpack_shard", "torch_profiler_capture"]
+           "ElasticDeviceRowBlockIter", "unpack_tree", "unpack_shard",
+           "torch_profiler_capture"]
 
 _lane_metrics = None
 
@@ -1352,3 +1357,76 @@ class DeviceRowBlockIter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class ElasticDeviceRowBlockIter:
+    """Lease data plane × device pipeline (the reference's
+    ``ElasticDeviceRowBlockIter``, tpu/device_iter.py).
+
+    Each shard the tracker grants becomes a :class:`DeviceRowBlockIter`
+    over ``part=shard, npart=num_shards`` on the device, so leased shards
+    flow lease → batcher → device. Yields ``(shard, device_batch)`` pairs;
+    a shard's lease completes only after its last batch was yielded, so a
+    consumer that dies mid-shard leaves the shard to the tracker, which
+    reclaims and grants it again.
+
+    On :class:`TrackerAbortedError` (from an acquire, or surfaced by the
+    monitor mid-shard) the live pipeline is torn down through
+    :meth:`DeviceRowBlockIter.abort_drain` and the error propagates.
+    :meth:`abort_drain` may be called from another thread, so it fits a
+    :class:`~dmlc_core_tpu_torch.parallel.elastic.StepWatchdog` drain
+    list. ``device_kwargs`` go to each shard's :class:`DeviceRowBlockIter`
+    (``batch_rows``, ``device``, ...)."""
+
+    def __init__(self, uri: str, num_shards: Optional[int] = None,
+                 monitor=None, epoch: int = 0,
+                 acquire_timeout: Optional[float] = None,
+                 **device_kwargs):
+        from dmlc_core_tpu_torch.tracker.client import current_monitor
+        self.uri = uri
+        self._monitor = monitor if monitor is not None else current_monitor()
+        if self._monitor is None:
+            raise DMLCError(
+                "ElasticDeviceRowBlockIter needs a heartbeat channel "
+                "(rendezvous with heartbeat=True under an elastic "
+                "tracker) — without leases there is no shard source")
+        self.num_shards = num_shards if num_shards is not None \
+            else env_int("DMLC_TRACKER_NUM_SHARDS", 0)
+        if self.num_shards <= 0:
+            raise DMLCError(
+                "ElasticDeviceRowBlockIter: num_shards must be > 0 (set "
+                "DMLC_TRACKER_NUM_SHARDS or pass num_shards=)")
+        self.epoch = epoch
+        self._acquire_timeout = acquire_timeout
+        self._device_kwargs = device_kwargs
+        self._current: Optional[DeviceRowBlockIter] = None
+
+    def __iter__(self):
+        while True:
+            shard = self._monitor.acquire_lease(
+                self.epoch, timeout=self._acquire_timeout)
+            if shard is None:
+                return  # epoch drained: every shard checked out
+            it = DeviceRowBlockIter(self.uri, part=shard,
+                                    npart=self.num_shards,
+                                    **self._device_kwargs)
+            self._current = it
+            try:
+                for batch in it:
+                    yield shard, batch
+                self._monitor.complete_lease(self.epoch, shard)
+            except TrackerAbortedError:
+                it.abort_drain("tracker-abort mid-shard")
+                raise
+            finally:
+                self._current = None
+                it.close()
+
+    def abort_drain(self, reason: str = "tracker-abort") -> None:
+        """Tear down the in-flight shard's pipeline with a bounded wall
+        clock (:meth:`DeviceRowBlockIter.abort_drain`). Safe from a
+        watchdog thread: the pipeline's stop flag and queues are
+        thread-safe, and a racing consumer leaves its queue wait."""
+        it = self._current
+        if it is not None:
+            it.abort_drain(reason)

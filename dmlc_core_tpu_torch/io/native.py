@@ -12,11 +12,19 @@ binary lanes' batch fills (:class:`NativeCsrRecBatcher` for ``.crec``,
 (:class:`NativeRecordIOWriter`, :class:`NativeRecordIOReader`), the
 float32 -> bfloat16 conversion of the fills (:func:`bf16_bits`),
 URI-dispatched byte streams
-(:class:`NativeStream`, :func:`path_info`) for checkpoints and serving
-artifacts, the native half of the local-filesystem fault plan
-(:func:`set_fs_fault_plan`), and the native telemetry and trace documents
-(:func:`native_telemetry_snapshot`, :func:`native_trace_snapshot`) with
-the remote-I/O counters read from it (:func:`io_retry_stats`).
+(:class:`NativeStream`, :func:`path_info`, :func:`list_directory`),
+record-aligned partitioned reads (:class:`NativeInputSplit`, and
+:class:`LeasedSplit` over shard leases), the native half of the
+local-filesystem fault plan (:func:`set_fs_fault_plan`), the remote-I/O
+fault plan, timeout and WebHDFS credentials, and the native telemetry and
+trace documents with the remote-I/O counters read from them
+(:func:`io_retry_stats`).
+
+The native HTTP client speaks plain HTTP. An ``https://`` origin (and
+``s3://``/``azure://``/``hdfs://`` whose endpoint is https or unset) is
+reached through a local TLS-terminating helper
+(:mod:`dmlc_core_tpu_torch.io.tls_proxy`), started on first use unless
+``DCT_TLS_PROXY`` names one or ``DCT_TLS_AUTO=0``, as in the reference.
 
 bfloat16 planes are carried as ``uint16`` numpy arrays of bf16 bits; torch
 reads them with ``.view(torch.bfloat16)``. The port needs no ``ml_dtypes``.
@@ -28,7 +36,7 @@ import ctypes
 import json
 import os
 import threading
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -41,7 +49,12 @@ __all__ = ["lib", "build", "LIB_PATH", "NativeParser", "NativeBatcher",
            "RowBlock", "BF16_STORAGE", "bf16_bits", "path_info",
            "set_fs_fault_plan", "native_telemetry_snapshot",
            "native_trace_snapshot", "io_retry_stats",
-           "reset_io_retry_stats"]
+           "reset_io_retry_stats", "NativeInputSplit", "LeasedSplit",
+           "list_directory", "parser_formats_doc", "set_io_fault_plan",
+           "set_io_timeout_ms", "set_webhdfs_delegation_token",
+           "set_webhdfs_auth_header", "native_telemetry_reset",
+           "native_telemetry_enable", "native_trace_reset",
+           "native_flight_dump"]
 
 LIB_PATH = os.path.join(BUILD_DIR, "libdmlc_core_tpu_torch.so")
 _CPP_DIR = os.path.join(REPO_ROOT, "cpp")
@@ -146,7 +159,30 @@ def _declare_signatures(cdll: ctypes.CDLL) -> None:
         "dct_stream_write": (i, [vp, c.c_char_p, sz]),
         "dct_stream_free": (i, [vp]),
         "dct_fs_path_info": (i, [c.c_char_p, c.POINTER(sz), c.POINTER(i)]),
+        "dct_fs_list": (i, [c.c_char_p, i, c.POINTER(c.c_char_p)]),
         "dct_fs_set_fault_plan": (i, [c.c_char_p]),
+        "dct_split_create": (i, [c.c_char_p, u, u, c.c_char_p, i,
+                                 c.POINTER(vp)]),
+        "dct_split_create_ex": (i, [c.c_char_p, c.c_char_p, u, u,
+                                    c.c_char_p, i, i, i, sz, c.c_char_p,
+                                    u, i, c.POINTER(vp)]),
+        "dct_split_next_record": (i, [vp, c.POINTER(vp), c.POINTER(sz),
+                                      c.POINTER(i)]),
+        "dct_split_next_chunk": (i, [vp, c.POINTER(vp), c.POINTER(sz),
+                                     c.POINTER(i)]),
+        "dct_split_before_first": (i, [vp]),
+        "dct_split_reset_partition": (i, [vp, u, u]),
+        "dct_split_total_size": (i, [vp, c.POINTER(sz)]),
+        "dct_split_hint_chunk_size": (i, [vp, sz]),
+        "dct_split_free": (i, [vp]),
+        "dct_webhdfs_set_delegation_token": (i, [c.c_char_p]),
+        "dct_webhdfs_set_auth_header": (i, [c.c_char_p]),
+        "dct_set_tls_proxy": (i, [c.c_char_p]),
+        "dct_trace_reset": (i, []),
+        "dct_flight_dump": (i, [c.c_char_p, c.POINTER(i)]),
+        "dct_io_set_fault_plan": (i, [c.c_char_p]),
+        "dct_io_set_timeout_ms": (i, [i]),
+        "dct_parser_formats_doc": (i, [c.POINTER(c.c_char_p)]),
         "dct_telemetry_snapshot": (i, [c.POINTER(c.c_char_p)]),
         "dct_telemetry_reset": (i, []),
         "dct_telemetry_enable": (i, [i]),
@@ -223,6 +259,67 @@ def _check(status: int) -> None:
         raise DMLCError(lib().dct_last_error().decode("utf-8", "replace"))
 
 
+def _uri_needs_tls(uri: str) -> bool:
+    """Whether any member of this (possibly ';'-separated) URI reaches an
+    https origin under the native clients' env rules: https:// directly;
+    s3:// and azure:// whenever their endpoint env is https or unset (the
+    no-endpoint default is the real TLS-only cloud service,
+    cpp/src/{s3,azure}_filesys.cc ResolveTarget); hdfs:// under an https
+    WEBHDFS_NAMENODE (secure WebHDFS).
+
+    Matching is per-';'-member startswith on the scheme: a local path
+    whose query string merely embeds "https://" must not start the TLS
+    helper."""
+
+    def env(*names: str) -> str:
+        for n in names:
+            v = os.environ.get(n)
+            if v:
+                return v
+        return ""
+
+    for member in uri.split(";"):
+        member = member.strip()
+        if member.startswith("https://"):
+            return True
+        if member.startswith("s3://"):
+            ep = env("S3_ENDPOINT", "AWS_ENDPOINT")
+            if not ep or ep.startswith("https://"):
+                return True
+        elif member.startswith("azure://"):
+            ep = env("AZURE_ENDPOINT")
+            if not ep or ep.startswith("https://"):
+                return True
+        elif member.startswith(("hdfs://", "viewfs://")):
+            if env("WEBHDFS_NAMENODE").startswith("https://"):
+                return True
+    return False
+
+
+def _route_https(uri: str) -> str:
+    """Make https-origin URIs reachable before handing them to the native
+    core, whose client is plain HTTP: they route through the local
+    TLS-terminating helper (:mod:`dmlc_core_tpu_torch.io.tls_proxy`).
+
+    With no helper configured (``DCT_TLS_PROXY`` unset) the in-process
+    singleton starts and its address is published to the native router
+    through the C-ABI setter ``dct_set_tls_proxy``, never by mutating
+    ``os.environ``: native request threads may be reading the environment
+    (glibc setenv/getenv race). With a helper configured, or with
+    ``DCT_TLS_AUTO=0``, an earlier override is cleared so the environment
+    (or the native guidance error) decides. Returns the uri unchanged."""
+    if not _uri_needs_tls(uri):
+        return uri
+    if (os.environ.get("DCT_TLS_PROXY")
+            or os.environ.get("DCT_TLS_AUTO") == "0"):
+        _check(lib().dct_set_tls_proxy(b""))
+        return uri
+    from dmlc_core_tpu_torch.io.tls_proxy import ensure_tls_proxy
+    addr = ensure_tls_proxy(export_env=False)
+    _check(lib().dct_set_tls_proxy(addr.encode()))
+    return uri
+
+
 class RowBlock:
     """A parsed CSR block (reference RowBlock, data.h:174-236): zero-copy
     views into native memory, valid until the parser's next call."""
@@ -286,6 +383,7 @@ class NativeParser:
         if cache not in ("", "never", "auto", "refresh"):
             raise DMLCError(
                 f"cache must be one of never|auto|refresh, got {cache!r}")
+        uri = _route_https(uri)
         self._h = ctypes.c_void_p()
         _check(lib().dct_parser_create_ex(
             uri.encode(), part, npart, fmt.encode(), nthread,
@@ -389,6 +487,7 @@ class NativeBatcher:
                  fmt: str = "auto", nthread: int = 0, threaded: bool = True,
                  batch_rows: int = 65536, num_shards: int = 1,
                  min_nnz_bucket: int = 4096):
+        uri = _route_https(uri)
         self._h = ctypes.c_void_p()
         self._batch_rows = batch_rows
         self._num_shards = num_shards
@@ -539,6 +638,7 @@ class NativeCsrRecBatcher(_Handle):
     def __init__(self, uri: str, part: int = 0, npart: int = 1,
                  batch_rows: int = 65536, num_shards: int = 1,
                  min_nnz_bucket: int = 4096):
+        uri = _route_https(uri)
         self._h = ctypes.c_void_p()
         self._batch_rows = batch_rows
         self._num_shards = num_shards
@@ -606,6 +706,7 @@ class NativeDenseRecBatcher(_Handle):
 
     def __init__(self, uri: str, part: int = 0, npart: int = 1,
                  batch_rows: int = 65536, num_shards: int = 1):
+        uri = _route_https(uri)
         self._h = ctypes.c_void_p()
         self._batch_rows = batch_rows
         self._num_shards = num_shards
@@ -672,6 +773,7 @@ class NativeRecordIOWriter(_Handle):
     _FREE = "dct_recordio_writer_free"
 
     def __init__(self, uri: str):
+        uri = _route_https(uri)
         self._h = ctypes.c_void_p()
         _check(lib().dct_recordio_writer_create(uri.encode(),
                                                 ctypes.byref(self._h)))
@@ -688,6 +790,7 @@ class NativeRecordIOReader(_Handle):
     _FREE = "dct_recordio_reader_free"
 
     def __init__(self, uri: str):
+        uri = _route_https(uri)
         self._h = ctypes.c_void_p()
         _check(lib().dct_recordio_reader_create(uri.encode(),
                                                 ctypes.byref(self._h)))
@@ -726,11 +829,11 @@ def bf16_bits(src: np.ndarray) -> np.ndarray:
 
 class NativeStream:
     """URI-dispatched byte stream (reference Stream::Create, io.h:57):
-    local paths, ``file://`` and the remote schemes of the native core.
-    The reference's automatic TLS helper for ``https://`` is not part of
-    the port."""
+    local paths, ``file://`` and the remote schemes of the native core,
+    ``https://`` through the TLS helper."""
 
     def __init__(self, uri: str, mode: str = "r"):
+        uri = _route_https(uri)
         self._h = ctypes.c_void_p()
         _check(lib().dct_stream_create(uri.encode(), mode.encode(),
                                        ctypes.byref(self._h)))
@@ -781,11 +884,41 @@ class NativeStream:
 
 def path_info(uri: str) -> Tuple[int, bool]:
     """(size, is_dir) of ``uri``."""
+    uri = _route_https(uri)
     size = ctypes.c_size_t()
     is_dir = ctypes.c_int()
     _check(lib().dct_fs_path_info(uri.encode(), ctypes.byref(size),
                                   ctypes.byref(is_dir)))
     return size.value, bool(is_dir.value)
+
+
+def list_directory(uri: str, recursive: bool = False
+                   ) -> List[Tuple[str, int, str]]:
+    """List (path, size, 'f'|'d') entries (reference FileSystem, io.h:591)."""
+    uri = _route_https(uri)
+    out = ctypes.c_char_p()
+    _check(lib().dct_fs_list(uri.encode(), 1 if recursive else 0,
+                             ctypes.byref(out)))
+    try:
+        text = ctypes.string_at(out).decode()
+    finally:
+        lib().dct_str_free(out)
+    entries = []
+    for line in text.splitlines():
+        path, size, ftype = line.rsplit("\t", 2)
+        entries.append((path, int(size), ftype))
+    return entries
+
+
+def parser_formats_doc() -> str:
+    """Markdown documentation of every registered native data format and
+    its reflection parameters (``dct_parser_formats_doc``)."""
+    out = ctypes.c_char_p()
+    _check(lib().dct_parser_formats_doc(ctypes.byref(out)))
+    try:
+        return ctypes.string_at(out).decode()
+    finally:
+        lib().dct_str_free(out)
 
 
 def set_fs_fault_plan(plan: str) -> None:
@@ -818,6 +951,32 @@ def native_trace_snapshot() -> dict:
     return _json_doc(lib().dct_trace_snapshot)
 
 
+def native_telemetry_reset() -> None:
+    """Zero every metric in the native registry (``dct_telemetry_reset``)."""
+    _check(lib().dct_telemetry_reset())
+
+
+def native_telemetry_enable(on: bool) -> None:
+    """Gate the native side's timed spans at run time
+    (``dct_telemetry_enable``; overrides ``DMLC_TELEMETRY``). Counters
+    count either way."""
+    _check(lib().dct_telemetry_enable(1 if on else 0))
+
+
+def native_trace_reset() -> None:
+    """Drop every buffered native span and restart the trace sequence
+    (``dct_trace_reset``)."""
+    _check(lib().dct_trace_reset())
+
+
+def native_flight_dump(reason: str) -> bool:
+    """Best-effort native flight-recorder dump (``dct_flight_dump``) into
+    the ``DMLC_TRACE_DUMP`` directory. True only when a file landed."""
+    written = ctypes.c_int(0)
+    _check(lib().dct_flight_dump(reason.encode(), ctypes.byref(written)))
+    return written.value != 0
+
+
 # io_retry_stats() key -> the telemetry counter it reads
 _LEGACY_IO_STAT_NAMES = (
     ("requests", "io_requests_total"),
@@ -845,3 +1004,163 @@ def io_retry_stats() -> dict:
 def reset_io_retry_stats() -> None:
     """Zero the :func:`io_retry_stats` counters."""
     _check(lib().dct_io_stats_reset())
+
+
+def set_io_fault_plan(plan: str) -> None:
+    """Install a deterministic fault plan inside the native HTTP client,
+    below every backend (cpp/src/retry.h grammar, rules ';'-separated)::
+
+        reset:every=3;stall:every=5,ms=80;5xx:every=7,status=503
+
+    ``every=N`` fires on every Nth request, ``p=0.1`` with seeded
+    probability (``DMLC_IO_FAULT_SEED``). "" clears; bad grammar raises."""
+    _check(lib().dct_io_set_fault_plan(plan.encode()))
+
+
+def set_io_timeout_ms(ms: int) -> None:
+    """Per-attempt socket timeout (connect/recv/send, milliseconds) of all
+    native remote I/O; ``ms <= 0`` reverts to ``DMLC_IO_TIMEOUT_MS`` / the
+    60 s default. A ``?io_timeout_ms=`` URI arg overrides it per stream."""
+    _check(lib().dct_io_set_timeout_ms(ms))
+
+
+def set_webhdfs_delegation_token(token: str) -> None:
+    """Rotate the hdfs:// delegation token: later WebHDFS ops carry
+    ``delegation=<token>`` and omit ``user.name``; "" reverts to
+    ``user.name`` auth (initial value: ``WEBHDFS_DELEGATION_TOKEN``)."""
+    _check(lib().dct_webhdfs_set_delegation_token(token.encode()))
+
+
+def set_webhdfs_auth_header(header: str) -> None:
+    """Set a verbatim Authorization header for hdfs:// ops (the
+    SPNEGO/Kerberos hook, e.g. ``Negotiate <token>``); "" reverts
+    (initial value: ``WEBHDFS_AUTH_HEADER``)."""
+    _check(lib().dct_webhdfs_set_auth_header(header.encode()))
+
+
+class NativeInputSplit(_Handle):
+    """Record-aligned partitioned reader (reference InputSplit,
+    io.h:155-302): each ``(part, nsplit)`` yields a disjoint set of whole
+    records, and the parts together cover the source exactly once.
+    ``split_type`` is ``text`` or ``recordio`` (or ``indexed_recordio``
+    with ``index_uri``)."""
+
+    _FREE = "dct_split_free"
+
+    def __init__(self, uri: str, part: int = 0, nsplit: int = 1,
+                 split_type: str = "text", threaded: bool = True,
+                 index_uri: str = "", shuffle: bool = False, seed: int = 0,
+                 batch_size: int = 256, cache_file: str = "",
+                 shuffle_parts: int = 0, recurse: bool = False):
+        uri = _route_https(uri)
+        self._h = ctypes.c_void_p()
+        if (index_uri or shuffle or cache_file or shuffle_parts or recurse
+                or split_type == "indexed_recordio"):
+            _check(lib().dct_split_create_ex(
+                uri.encode(), index_uri.encode(), part, nsplit,
+                split_type.encode(), 1 if threaded else 0,
+                1 if shuffle else 0, seed, batch_size, cache_file.encode(),
+                shuffle_parts, 1 if recurse else 0, ctypes.byref(self._h)))
+        else:
+            _check(lib().dct_split_create(uri.encode(), part, nsplit,
+                                          split_type.encode(),
+                                          1 if threaded else 0,
+                                          ctypes.byref(self._h)))
+
+    def _next(self, fn) -> Optional[bytes]:
+        data = ctypes.c_void_p()
+        size = ctypes.c_size_t()
+        has = ctypes.c_int()
+        _check(fn(self._h, ctypes.byref(data), ctypes.byref(size),
+                  ctypes.byref(has)))
+        if not has.value:
+            return None
+        return ctypes.string_at(data, size.value) if size.value else b""
+
+    def next_record(self) -> Optional[bytes]:
+        """Next whole record, or None at the end of the part."""
+        return self._next(lib().dct_split_next_record)
+
+    def next_chunk(self) -> Optional[bytes]:
+        """Next record-aligned chunk of raw bytes, or None at the end."""
+        return self._next(lib().dct_split_next_chunk)
+
+    def __iter__(self) -> Iterator[bytes]:
+        while True:
+            rec = self.next_record()
+            if rec is None:
+                return
+            yield rec
+
+    def before_first(self) -> None:
+        """Restart this part from its first record."""
+        _check(lib().dct_split_before_first(self._h))
+
+    def reset_partition(self, part: int, nsplit: int) -> None:
+        """Re-point the split at another ``(part, nsplit)`` without
+        reopening the source (reference ResetPartition)."""
+        _check(lib().dct_split_reset_partition(self._h, part, nsplit))
+
+    def total_size(self) -> int:
+        """Byte size of the whole source, across all parts."""
+        out = ctypes.c_size_t()
+        _check(lib().dct_split_total_size(self._h, ctypes.byref(out)))
+        return out.value
+
+    def hint_chunk_size(self, nbytes: int) -> None:
+        """Suggest the chunk granularity of :meth:`next_chunk`."""
+        _check(lib().dct_split_hint_chunk_size(self._h, nbytes))
+
+
+class LeasedSplit:
+    """Elastic InputSplit: the records of shard leases granted at run time
+    instead of one static ``(part, nsplit)``. One
+    :class:`NativeInputSplit` is re-pointed at each granted shard with
+    ``reset_partition(shard, num_shards)``. ``leases`` is a
+    ``tracker.client.HeartbeatMonitor`` or a ``data.LocalLeases``; a shard
+    is completed only after its last record was yielded, so a worker that
+    dies mid-shard leaves it to another."""
+
+    def __init__(self, uri: str, leases, num_shards: int,
+                 split_type: str = "text", epoch: int = 0,
+                 acquire_timeout: Optional[float] = None, **split_kwargs):
+        if num_shards <= 0:
+            raise DMLCError("LeasedSplit needs num_shards > 0")
+        self._split = NativeInputSplit(uri, 0, num_shards, split_type,
+                                       **split_kwargs)
+        self._leases = leases
+        self.num_shards = num_shards
+        self.epoch = epoch
+        self._acquire_timeout = acquire_timeout
+        self.consumed: list = []
+
+    def __iter__(self) -> Iterator[bytes]:
+        """Records of every shard this worker wins, shard by shard."""
+        while True:
+            shard = self._leases.acquire_lease(self.epoch,
+                                               self._acquire_timeout)
+            if shard is None:
+                return
+            self._split.reset_partition(shard, self.num_shards)
+            while True:
+                rec = self._split.next_record()
+                if rec is None:
+                    break
+                yield rec
+            self._leases.complete_lease(self.epoch, shard)
+            self.consumed.append(shard)
+
+    def set_epoch(self, epoch: int) -> None:
+        """Move to another epoch's lease pool."""
+        self.epoch = epoch
+        self.consumed = []
+
+    def close(self) -> None:
+        """Free the native split (idempotent)."""
+        self._split.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -861,6 +861,34 @@ METRIC_HELP: Dict[str, str] = {
         "fraction of transfer time hidden behind consumer compute "
         "(-1 before any transfer)",
     "telemetry_events_total": "events per kind",
+    # the job tracker, its shard leases and the elastic world
+    "tracker_num_workers": "workers the tracker expects",
+    "tracker_alive": "1 while the tracker thread is serving",
+    "tracker_finished": "1 once every worker checked out",
+    "tracker_aborted": "1 after the job was aborted",
+    "tracker_rank_phase_code":
+        "0 assigned, 1 alive, 2 dead, 3 shutdown, 4 lost",
+    "tracker_rank_heartbeat_age_seconds":
+        "seconds since the rank's last beat (-1 before the first)",
+    "tracker_rank_restarts": "recover count per rank",
+    "tracker_rank_attempts": "assignment handshakes served per rank",
+    "tracker_lease_pool": "shards free for acquisition",
+    "tracker_lease_held": "shards currently leased to a rank",
+    "tracker_lease_done": "shards checked out exactly once",
+    "tracker_lease_reassigned": "leases reclaimed this epoch",
+    "tracker_lease_reassigned_total": "reclaim events across the job",
+    "lease_renew_us": "tracker-side implicit lease renewal on a ping (us)",
+    "lease_acquire_us": "worker-side acquire round trip (us)",
+    "tracker_world_relaunches_total":
+        "whole-world relaunches after a mesh abort (run_job mesh mode)",
+    "mesh_step_aborts_total":
+        "structured step aborts on this rank (between-steps raise or "
+        "step-deadline watchdog)",
+    "device_abort_drains_total":
+        "device-pipeline abort drains (staging/transfer stopped, parked "
+        "buffers dropped)",
+    "tracker_straggler_rank":
+        "rank bound as the mesh straggler (-1 when none)",
     "stall_stage_occupancy":
         "fraction of instrumented batch-path time in the stage",
     "stall_verdict_code":

@@ -1,9 +1,8 @@
 """The size-capped JSONL sink that drops and counts failed lines.
 
 A copy of ``_EventLog`` from ``dmlc_core_tpu/tracker/rendezvous.py``
-(class name kept so a reader finds its counterpart). The reference's
-tracker writes its event log through it; in the port it is the scoring
-server's access log.
+(class name kept so a reader finds its counterpart): the tracker's
+``DMLC_TRACKER_EVENT_LOG`` and the scoring server's access log.
 """
 
 from __future__ import annotations
@@ -76,6 +75,15 @@ class _EventLog:
                         self._size = 0
             except (OSError, ValueError):
                 pass
+
+    def flush(self) -> None:
+        """Flush through to disk (flush + fsync, best effort): called on
+        abort so the final dead/abort events survive the process."""
+        try:
+            self._fp.flush()
+            os.fsync(self._fp.fileno())
+        except (OSError, ValueError):
+            pass
 
     def close(self) -> None:
         try:

@@ -1,7 +1,8 @@
 """Shared mini-HTTP plumbing for content-sniffed sockets.
 
 A copy of what the scoring front end
-(:mod:`dmlc_core_tpu_torch.serving.frontend`) needs from
+(:mod:`dmlc_core_tpu_torch.serving.frontend`) and the tracker's scrape
+surface (:mod:`dmlc_core_tpu_torch.tracker.rendezvous`) need from
 ``dmlc_core_tpu/tracker/minihttp.py``: the bounded request-head
 discipline (a loud 431 instead of a silent drop when headers overflow, a
 405 instead of a reject when a known-but-unsupported method arrives),

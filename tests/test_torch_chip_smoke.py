@@ -343,3 +343,49 @@ def test_cluster_check_catches_a_wrong_sum():
         cs.telemetry.cluster_prometheus_text = real
     assert not bad["job_counters_equal_rank_sums"]
     assert bad["mismatches"] == {"job:a_total{}": [5.0, 4]}
+
+
+@pytest.fixture
+def job_s3(tmp_path, one_thread):
+    """The HIGGS-shaped file at 4,096 rows on the tests' mock S3 (the one
+    ``tests/test_s3.py`` serves, which the native S3 client of this
+    process is bound to)."""
+    from test_s3 import _STATE
+    data = cs.write_higgs_files(str(tmp_path), rows=4096)
+    uri = f"s3://{cs.JOB_BUCKET}/higgs_like.libsvm"
+    cs.upload(data["text"], uri)
+    with open(data["text"], "rb") as f:
+        assert _STATE.objects[(cs.JOB_BUCKET, "higgs_like.libsvm")] == \
+            f.read()
+    return str(tmp_path), data, uri
+
+
+def test_job_run_a_rehearsal_on_cpu(job_s3):
+    """Run A of the ``job`` phase on the CPU (16 shards of 256 rows, two
+    workers, the victim SIGKILLed holding its second lease): its gates
+    hold and its numbers are the ones the phase prints."""
+    wd, data, uri = job_s3
+    a = cs.job_run_a(wd, data, uri, "cpu", 128)
+    assert sorted(sum(a["shards_per_task"].values(), [])) == \
+        list(range(cs.JOB_SHARDS))
+    assert a["victim"]["held_shard"] in a["shards_per_task"][1]
+    assert a["rows"] == 4096 and a["relaunch"] in ("lost", "tracker-gone")
+    assert a["relaunch_start_after_kill_ms"] > 0
+    # the lease comes back only with the write-off: dead-after + grace
+    assert cs.JOB_DEAD_MS <= a["kill_to_regrant_ms"] < 10_000
+    assert a["launches"] == 0  # CPU: the plain version
+
+
+def test_job_run_b_rehearsal_on_cpu(job_s3):
+    """Run B of the ``job`` phase on the CPU (8 steps of 512 rows, rank 1
+    SIGKILLed in step 5, the world relaunched from the step-4 job
+    checkpoint on the mock S3): its gates hold."""
+    wd, data, uri = job_s3
+    b = cs.job_run_b(wd, data, uri, "cpu", 512)
+    assert len(b["losses"]) == cs.JOB_STEPS and b["step4_bit_equal"]
+    assert b["loss_max_rel"] <= 1e-5
+    assert b["world_relaunches"] == 1
+    assert b["kill_to_survivor_exit_ms"] <= 2 * cs.JOB_DEAD_MS
+    assert b["survivor_cause"] in ("sigterm", "collective-error",
+                                   "tracker-abort")
+    assert len(b["abort_reasons"]) == 1  # one abort, whatever came first

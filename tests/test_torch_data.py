@@ -12,8 +12,9 @@ reference's ``pipeline_stats`` keys; a Python-registered parser,
 ``on_error="skip"`` over one that raises, and the factories' refusals;
 ``ElasticRowBlockIter`` on ``LocalLeases`` (the same shard order and
 batches for the same ``(num_shards, shuffle_window, run_id, epoch)``).
-Elastic mode without ``leases=`` raises in the port: the tracker's
-heartbeat monitor is not ported. The reference's native core comes from
+Elastic mode without ``leases=`` and without a tracker heartbeat monitor
+raises the reference's refusal in both packages. The reference's native
+core comes from
 the locked build (``tests/torch_reference_native.py``).
 """
 
@@ -320,9 +321,16 @@ def test_elastic_on_local_leases_matches_reference(tmp_path, num_shards,
 
 
 def test_elastic_refusals(tmp_path, monkeypatch):
+    import dmlc_core_tpu.tracker.client as ref_client
+    import dmlc_core_tpu_torch.tracker.client as port_client
     uri, _ = _make(tmp_path, "libsvm_weight_qid")
-    with pytest.raises(DMLCError, match="queue 1, item 4"):
+    # no heartbeat monitor in this process, whatever ran here before
+    for mod in (ref_client, port_client):
+        monkeypatch.setattr(mod, "current_monitor", lambda: None)
+    with pytest.raises(DMLCError, match="needs a lease source"):
         data.RowBlockIter.create(uri, elastic=True, num_shards=2)
+    with pytest.raises(RefError, match="needs a lease source"):
+        ref_data.RowBlockIter.create(uri, elastic=True, num_shards=2)
     with pytest.raises(DMLCError, match="num_shards > 0"):
         data.RowBlockIter.create(uri, elastic=True,
                                  leases=data.LocalLeases(2))

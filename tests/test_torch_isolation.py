@@ -38,12 +38,17 @@ import dmlc_core_tpu_torch
 names = ["dmlc_core_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(dmlc_core_tpu_torch.__path__,
                                           "dmlc_core_tpu_torch.")]
-# the fourth to sixth slices' modules by name, so none can drop out
+# the fourth to seventh slices' modules by name, so none can drop out
 # unnoticed
 for mod in ("io.convert", "ops.ranking", "models.fm", "models.convert",
             "device.device_iter", "train", "parallel",
             "parallel.distributed", "device.sharding", "data", "config",
-            "params", "registry", "utils.timer", "telemetry"):
+            "params", "registry", "utils.timer", "telemetry",
+            "io.native", "io.tls_proxy", "tracker", "tracker.wire",
+            "tracker.topology", "tracker.rendezvous", "tracker.client",
+            "tracker.supervisor", "tracker.opts", "tracker.launchers",
+            "tracker.submit", "tracker.bootstrap", "tracker.mesos_status",
+            "tracker.event_log", "parallel.elastic"):
     assert "dmlc_core_tpu_torch." + mod in names, mod
 for name in names:
     importlib.import_module(name)
@@ -61,7 +66,43 @@ def test_port_imports_without_jax_or_reference():
         capture_output=True, text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 40  # every module of the six slices
+    assert n >= 50  # every module of the seven slices
+
+
+BLOCK = BLOCKED_IMPORT_PROBE.split("import dmlc_core_tpu_torch\n")[0]
+
+SUBMIT_WORKER = BLOCK + r"""
+import os
+from dmlc_core_tpu_torch.tracker.client import RendezvousClient
+c = RendezvousClient(os.environ["DMLC_TRACKER_URI"],
+                     int(os.environ["DMLC_TRACKER_PORT"]))
+a = c.start(heartbeat=True)
+c.shutdown(a.rank)
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+with open(os.path.join(sys.argv[2], "worker%d" % a.rank), "w") as f:
+    f.write("joined")
+"""
+
+
+def test_submit_runs_with_the_blocked_packages(tmp_path):
+    """``python -m dmlc_core_tpu_torch.tracker.submit --cluster local``
+    and its two workers, every process with the same import block."""
+    worker = tmp_path / "worker.py"
+    worker.write_text(SUBMIT_WORKER)
+    submit = BLOCK + (
+        "import runpy\n"
+        "sys.argv = sys.argv[1:]\n"
+        "runpy.run_module('dmlc_core_tpu_torch.tracker.submit',"
+        " run_name='__main__')\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", submit, REPO, "--cluster", "local",
+         "--num-workers", "2", "--heartbeat-ms", "200", "--",
+         sys.executable, str(worker), REPO, str(tmp_path)],
+        capture_output=True, text=True, timeout=300, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert sorted(p.name for p in tmp_path.glob("worker?")) == [
+        "worker0", "worker1"]
 
 
 def test_port_sources_name_no_blocked_package():
@@ -75,11 +116,35 @@ def test_port_sources_name_no_blocked_package():
         for line in open(path):
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                if path.endswith("chip_smoke.py") and \
+                        words[:4] == ["from", "tests", "import", "mock_s3"]:
+                    continue  # the loopback S3, checked below
                 top = words[1].split(".")[0]
                 assert top not in ("jax", "jaxlib", "ml_dtypes",
                                    "dmlc_core_tpu", "loadrig",
                                    "serving_util", "scripts",
                                    "tests"), (path, line)
+
+
+def test_chip_smokes_mock_s3_needs_no_blocked_package():
+    """``chip_smoke.py``'s ``job`` phase serves its ``s3://`` data from
+    ``tests/mock_s3.py`` in its own process: that mock (and the origin
+    plumbing it starts) runs with JAX, ml_dtypes and the JAX package
+    blocked."""
+    probe = BLOCKED_IMPORT_PROBE.split("import dmlc_core_tpu_torch\n")[0]
+    probe = probe.replace('"scripts", "tests")', '"scripts")') + (
+        "from tests import mock_s3\n"
+        "state, port, shutdown = mock_s3.serve()\n"
+        "shutdown()\n"
+        "leaked = sorted(n for n in sys.modules "
+        "if n.split('.')[0] in BLOCKED)\n"
+        "assert not leaked, leaked\n"
+        "print('SERVED', port)\n")
+    proc = subprocess.run([sys.executable, "-c", probe, REPO],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SERVED" in proc.stdout
 
 
 @pytest.fixture

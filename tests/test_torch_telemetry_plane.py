@@ -39,10 +39,13 @@ NB = tel.HIST_BUCKETS + 1
 
 @pytest.fixture(autouse=True)
 def _clean():
-    tel.reset(native=False)
+    # the port's native registry and span ring too: a parse run earlier in
+    # the same process (another test file) leaves native spans that
+    # rank_export() would carry
+    tel.reset()
     ref_tel.reset(native=False)
     yield
-    tel.reset(native=False)
+    tel.reset()
     ref_tel.reset(native=False)
 
 
@@ -163,7 +166,8 @@ def _metric_doc(rng, rank=0):
     }
 
 
-def test_prometheus_text_matches_reference_byte_for_byte():
+def test_prometheus_text_matches_reference_byte_for_byte(
+        python_parse_metrics):
     rng = np.random.default_rng(3)
     doc = _metric_doc(rng)
     assert tel.prometheus_text(doc) == ref_tel.prometheus_text(doc)
@@ -189,7 +193,22 @@ def test_help_catalog_is_the_references():
         assert name in shared
 
 
-def test_derived_gauges_match_reference():
+@pytest.fixture
+def python_parse_metrics():
+    """The parse pipeline's metrics belong to the native half; Python-side
+    ones of the same names, left in a registry, would shadow the native
+    ones in every later snapshot of the process (the reference's
+    ``tests/test_telemetry.py`` reads them), so they go when the test
+    ends."""
+    yield
+    for mod in (tel, ref_tel):
+        with mod._lock:
+            for table in (mod._counters, mod._hists):
+                for key in [k for k in table if k[0].startswith("parse_")]:
+                    del table[key]
+
+
+def test_derived_gauges_match_reference(python_parse_metrics):
     """The same observations and spans in both registries: the snapshot's
     stall and overlap gauges are equal."""
     for mod in (tel, ref_tel):
