@@ -142,6 +142,32 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  bit for bit. Kill -> re-grant, kill -> survivor exit,
                  the relaunch gap, rows/s, shard start cost and the
                  largest heartbeat age the tracker reported.
+11. ``lm``     — the LM lane at ``examples/train_lm.py``'s width (vocab
+                 256, embed 128, 4 heads, 2 layers, seq 2048; batch 8,
+                 lr 0.05, 6 steps of ``byte_windows(seed=0)`` over the
+                 repo's text: ``SURVEY.md`` then ``doc/*.md``, size and
+                 sha256 printed). (a) The ring model and the TP model
+                 with 4 experts on a 1 x 1 mesh of the card against the
+                 port's CPU run of the same steps (losses rtol 1e-4,
+                 parameters rtol 5e-4, atol 1e-5), the loss falling; step
+                 median, tokens/s, peak device bytes, the step's FLOP
+                 count and its share of the FP32 peak, and one more step
+                 under ``torch.profiler`` (busy share, top device ops).
+                 (b) One 2-rank gloo world sharing the card (this script
+                 in ``lm-worker`` mode): the ring at ``data=1,seq=2`` and
+                 TP + MoE at ``data=1,model=2`` against (a) (the ring's
+                 parameters at rtol 5e-4, atol 1e-5 and losses at rtol
+                 1e-5; TP losses at rtol 2e-5, atol 2e-5), replicas bit
+                 for bit; zigzag ring attention against ``mha_reference``
+                 (rtol 2e-4, atol 2e-5); a 2-stage ``pipeline_apply``
+                 forward and backward against the sequential program
+                 (rtol 1e-5, atol 1e-5); the median of 20 bare host-staged
+                 exchanges of one K/V block. (c) ``python -m
+                 dmlc_core_tpu_torch.train_lm --mesh data=1,seq=2`` under
+                 ``tracker.submit --mesh`` with job checkpoints every 3
+                 steps, then resumed from the step-3 commit: the printed
+                 losses of steps 3-5 and the step-6 parameters at rtol
+                 1e-5. The lane launches no ``csr_to_dense``.
 
 Each configuration keeps its published widths; row counts are cut, and
 each phase's JSON names the cut (``reduced``).
@@ -162,6 +188,7 @@ import io
 import json
 import os
 import random
+import re
 import select
 import signal
 import statistics
@@ -2822,6 +2849,9 @@ def job_run_b(workdir: str, data: dict, uri: str, device: str,
     records = read_jsonl(os.path.join(scratch, "abort.jsonl"))
     dumps = []
     for name in os.listdir(os.path.join(scratch, "dumps")):
+        if not name.endswith(".json"):
+            continue  # a dump its writer died inside (another thread's
+            # os._exit): the heartbeat thread dumps on the abort too
         with open(os.path.join(scratch, "dumps", name)) as f:
             doc = json.load(f)
         dumps.append((doc["reason"].split(":")[0], doc["rank"]))
@@ -2916,6 +2946,470 @@ def job_phase(workdir: str, data: dict) -> dict:
     return out
 
 
+# -- phase 11: the LM lane ---------------------------------------------------
+# examples/train_lm.py's defaults: the repo's full width for this model
+LM_SEQ = 2048
+LM_EMBED = 128
+LM_HEADS = 4
+LM_LAYERS = 2
+LM_BATCH = 8
+LM_STEPS = 6
+LM_LR = 0.05
+LM_EXPERTS = 4          # the CLI's default at model=2 (2 per model slice)
+LM_SEED = 0
+LM_CKPT_EVERY = 3
+LM_EXCHANGES = 20
+LM_PIPE_MICRO = 4
+
+
+def lm_corpus(workdir: str) -> dict:
+    """The corpus: ``SURVEY.md`` then ``doc/*.md`` in sorted order, files of
+    the repo that hold text, concatenated; its size and sha256."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    doc = os.path.join(here, "doc")
+    files = [os.path.join(here, "SURVEY.md")] + sorted(
+        os.path.join(doc, n) for n in os.listdir(doc) if n.endswith(".md"))
+    body = b"".join(open(f, "rb").read() for f in files)
+    path = os.path.join(workdir, "lm_corpus.txt")
+    with open(path, "wb") as f:
+        f.write(body)
+    return {"path": path, "bytes": len(body),
+            "sha256": hashlib.sha256(body).hexdigest(),
+            "files": [os.path.relpath(f, here) for f in files]}
+
+
+def lm_model(kind: str, mesh, sizes: dict):
+    """The CLI's model at ``sizes`` (seq, embed, heads, layers) on ``mesh``:
+    ``lm`` the ring model, ``tp`` the tensor-parallel MoE."""
+    if kind == "lm":
+        from dmlc_core_tpu_torch.models.transformer import (
+            TransformerConfig, TransformerLM)
+        cfg = TransformerConfig(vocab=256, max_seq=sizes["seq"],
+                                embed=sizes["embed"], heads=sizes["heads"],
+                                layers=sizes["layers"])
+        return TransformerLM(cfg, mesh, learning_rate=LM_LR)
+    from dmlc_core_tpu_torch.models.tp_transformer import (
+        TPTransformerConfig, TPTransformerLM)
+    cfg = TPTransformerConfig(vocab=256, max_seq=sizes["seq"],
+                              embed=sizes["embed"], heads=sizes["heads"],
+                              layers=sizes["layers"],
+                              moe_experts=LM_EXPERTS)
+    return TPTransformerLM(cfg, mesh, learning_rate=LM_LR)
+
+
+def lm_step_flops(kind: str, sizes: dict) -> int:
+    """Matmul FLOPs of one training step (forward and twice that for the
+    backward) as the step computes them: every score of the causal
+    square (the ring masks, it does not skip), and the dense MoE dispatch
+    through every expert."""
+    B, S, D = sizes["batch"], sizes["seq"], sizes["embed"]
+    F, V = 4 * D, 256
+    layer = 2 * B * S * D * 3 * D + 2 * 2 * B * S * S * D \
+        + 2 * B * S * D * D
+    if kind == "lm":
+        layer += 2 * 2 * B * S * D * F
+    else:
+        E = LM_EXPERTS
+        layer += 2 * B * S * D * E + 2 * 2 * B * S * E * D * F \
+            + 2 * B * S * E * D
+    return 3 * (sizes["layers"] * layer + 2 * B * S * D * V)
+
+
+def lm_step_profile(model, params, w, prof_dir: str) -> dict:
+    """One more step (its result dropped) under ``torch_profiler_capture``,
+    read as the ``telemetry`` phase reads its epoch: ``device_timeline``
+    over the step's wall window gives the card's busy share (merged device
+    intervals), the top device operations and the longest idle gaps."""
+    sync(model.device)
+    os.environ["DMLC_TORCH_PROFILE"] = prof_dir
+    try:
+        with device_iter.torch_profiler_capture(model.device) as captured:
+            t0 = time.perf_counter()
+            float(model.step(params, w[:, :-1], w[:, 1:])[1])
+            t1 = time.perf_counter()
+    finally:
+        del os.environ["DMLC_TORCH_PROFILE"]
+    require(captured, "lm: the profiler capture did not run")
+    pid = os.getpid()
+    with open(os.path.join(prof_dir, f"torch_trace_{pid}.json")) as f:
+        trace = json.load(f)
+    with open(os.path.join(prof_dir, f"dmlc_anchor_{pid}.json")) as f:
+        anchors = json.load(f)
+    shift, _ = trace_clock_shift_us(trace, anchors)
+    tl = device_timeline(trace, shift, t0 * 1e6, t1 * 1e6, [])
+    return {k: tl[k] for k in ("window_us", "busy_us", "busy_share",
+                               "device_events", "top_ops", "idle_gaps")}
+
+
+def lm_train(kind: str, mesh, corpus: str, sizes: dict,
+             prof_dir: str = "") -> dict:
+    """``sizes["steps"]`` steps of ``kind`` on ``mesh`` over the CLI's
+    windows (``byte_windows(seed=0)``, one part): losses, step seconds
+    (the loss read back), the WHOLE final parameters, peak device bytes;
+    with ``prof_dir``, :func:`lm_step_profile` of one more step."""
+    from dmlc_core_tpu_torch.models.convert import lm_params_to_numpy
+    from dmlc_core_tpu_torch.models.transformer import leaves
+    from dmlc_core_tpu_torch.train_lm import byte_windows, load_corpus
+    data = load_corpus(corpus, sizes["seq"])
+    model = lm_model(kind, mesh, sizes)
+    params = model.init(seed=LM_SEED)
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        sync(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    losses, step_s = [], []
+    for step in range(sizes["steps"]):
+        w = byte_windows(data, sizes["seq"], sizes["batch"], LM_SEED, step)
+        t0 = time.perf_counter()
+        params, loss = model.step(params, w[:, :-1], w[:, 1:])
+        losses.append(float(loss))  # synchronizes the step
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(mesh.device) if cuda else None
+    prof = lm_step_profile(model, params, byte_windows(
+        data, sizes["seq"], sizes["batch"], LM_SEED, sizes["steps"]),
+        prof_dir) if prof_dir else None
+    full = lm_params_to_numpy(params, model)
+    return {"losses": losses, "step_s": step_s,
+            "params": [np.asarray(p) for p in leaves(full)],
+            "peak_bytes": peak, "profile": prof}
+
+
+def params_close(got: list, want: list, rtol: float, atol: float
+                 ) -> "tuple[bool, float]":
+    """Whether every leaf agrees at the tolerance, and the largest
+    absolute difference."""
+    ok = len(got) == len(want) and all(
+        a.shape == b.shape and np.allclose(a, b, rtol=rtol, atol=atol)
+        for a, b in zip(got, want))
+    err = max((float(np.max(np.abs(a - b))) for a, b in zip(got, want)
+               if a.shape == b.shape), default=float("inf"))
+    return ok, err
+
+
+def lm_single(workdir: str, corpus: str, device: str, sizes: dict) -> dict:
+    """(a): both models on a 1 x 1 mesh on ``device``, against the port's
+    CPU run of the same steps: losses at rtol 1e-4, parameters at rtol
+    5e-4, atol 1e-5 (the reference's mesh tolerance); the loss falls. On
+    the card one more step of each runs under the profiler."""
+    from dmlc_core_tpu_torch.device.sharding import process_mesh
+    out = {}
+    for kind, axis in (("lm", "seq"), ("tp", "model")):
+        axes = (("data", 1), (axis, 1))
+        prof_dir = os.path.join(workdir, f"lm_profile_{kind}") \
+            if device == "cuda" else ""
+        run = lm_train(kind, process_mesh(axes, device=device), corpus,
+                       sizes, prof_dir)
+        ref = lm_train(kind, process_mesh(axes, device="cpu"), corpus,
+                       sizes) if device != "cpu" else run
+        la, lb = np.asarray(run["losses"]), np.asarray(ref["losses"])
+        require(np.allclose(la, lb, rtol=1e-4, atol=0),
+                f"lm {kind}: losses against the CPU run at rtol 1e-4",
+                got=run["losses"], cpu=ref["losses"])
+        ok, err = params_close(run["params"], ref["params"], 5e-4, 1e-5)
+        require(ok, f"lm {kind}: parameters against the CPU run at rtol "
+                "5e-4, atol 1e-5", max_abs_err=err)
+        require(run["losses"][-1] < run["losses"][0],
+                f"lm {kind}: the loss falls", losses=run["losses"])
+        step = statistics.median(run["step_s"])
+        flops = lm_step_flops(kind, sizes)
+        out[kind] = {
+            "losses": run["losses"], "cpu_losses": ref["losses"],
+            "loss_max_rel": float(np.max(np.abs(la - lb) / np.abs(lb))),
+            "params_max_abs_err": err, "step_ms_median": 1e3 * step,
+            "step_ms": [1e3 * s for s in run["step_s"]],
+            "tokens_per_s": sizes["batch"] * sizes["seq"] / step,
+            "peak_device_bytes": run["peak_bytes"],
+            "step_flop": flops,
+            "fp32_peak_share": flops / step / FP32_FLOP_PER_S
+            if device == "cuda" else None,
+            "profiled_step": run["profile"], "_params": run["params"]}
+    return out
+
+
+def pipeline_stage(w, x):
+    """One homogeneous MLP stage of the pipeline case."""
+    return torch.tanh(x @ w["a"]) @ w["b"] + x
+
+
+def lm_world_cases(spec: dict, mesh_sp, mesh_tp) -> dict:
+    """(b)'s cases on one rank: the ring model, the TP + MoE model, zigzag
+    ring attention against the dense oracle, the 2-stage pipeline forward
+    and backward against the sequential program, and the bare host-staged
+    K/V exchange."""
+    from dmlc_core_tpu_torch.ops.attention import mha_reference
+    from dmlc_core_tpu_torch.parallel import axis, distributed
+    from dmlc_core_tpu_torch.parallel.pipeline_parallel import pipeline_apply
+    from dmlc_core_tpu_torch.parallel.ring import sequence_parallel_attention
+    sizes, dev = spec["sizes"], mesh_sp.device
+    out = {}
+    for kind, mesh in (("lm", mesh_sp), ("tp", mesh_tp)):
+        run = lm_train(kind, mesh, spec["corpus"], sizes)
+        blob = b"".join(p.tobytes() for p in run["params"])
+        blobs = distributed.allgather_bytes(blob)
+        if distributed.rank() == 0:
+            np.savez(spec[f"{kind}_params"], *run["params"])
+        out[kind] = {"losses": run["losses"], "step_s": run["step_s"],
+                     "peak_bytes": run["peak_bytes"],
+                     "replicas_identical": all(b == blobs[0]
+                                               for b in blobs)}
+    g = mesh_sp.group_of("seq")
+    rng = np.random.default_rng(5)
+    B, S, H = sizes["batch"], sizes["seq"], sizes["heads"]
+    hd = sizes["embed"] // H
+    q, k, v = (torch.tensor(rng.normal(size=(B, S, H, hd)).astype(
+        np.float32), device=dev) for _ in range(3))
+    got = sequence_parallel_attention(q, k, v, g, causal=True,
+                                      layout="zigzag")
+    want = mha_reference(q, k, v, causal=True)
+    out["zigzag"] = {"max_abs_err": float((got - want).abs().max()),
+                     "ok": bool(torch.allclose(got, want, rtol=2e-4,
+                                               atol=2e-5))}
+    # the pipeline: stage s of 2, microbatches of one sequence at the
+    # model's width, the mean squared error's per-stage gradient
+    D = sizes["embed"]
+    ws = [{n: torch.tensor(rng.normal(0, D ** -0.5, (D, D)).astype(
+        np.float32), device=dev) for n in "ab"} for _ in range(2)]
+    mb = torch.tensor(rng.normal(size=(LM_PIPE_MICRO, S, D)).astype(
+        np.float32), device=dev)
+    target = torch.tensor(rng.normal(size=mb.shape).astype(np.float32),
+                          device=dev)
+    stage = mesh_sp.index("seq")
+    mine = {n: t.clone().requires_grad_() for n, t in ws[stage].items()}
+    y = pipeline_apply(pipeline_stage, mine, mb, g)
+    ((y - target) ** 2).mean().backward()
+    seq_ws = [{n: t.clone().requires_grad_() for n, t in w.items()}
+              for w in ws]
+    x = mb
+    for w in seq_ws:
+        x = pipeline_stage(w, x)
+    ((x - target) ** 2).mean().backward()
+    close = [torch.allclose(y, x, rtol=1e-5, atol=1e-5)] + [
+        torch.allclose(mine[n].grad, seq_ws[stage][n].grad, rtol=1e-5,
+                       atol=1e-5) for n in "ab"]
+    out["pipeline"] = {
+        "ok": all(bool(c) for c in close),
+        "max_abs_err": max(float((y - x).abs().max()), *(
+            float((mine[n].grad - seq_ws[stage][n].grad).abs().max())
+            for n in "ab"))}
+    # the bare host-staged exchange of one K/V block of the ring
+    kv = torch.stack([k, v])[:, :, :S // 2].contiguous()
+    peer = 1 - stage
+    times = []
+    for _ in range(LM_EXCHANGES + 1):  # the first run warms up
+        distributed.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        axis.exchange(kv, peer, peer, g)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    out["exchange"] = {"bytes": kv.numel() * 4,
+                       "ms_median": 1e3 * statistics.median(times[1:])}
+    return out
+
+
+def lm_worker(spec_path: str, out_path: str) -> int:
+    """A rank of (b)'s world (``chip_smoke.py lm-worker SPEC OUT``): two
+    gloo ranks sharing the card, each case of :func:`lm_world_cases`,
+    the results as JSON."""
+    from dmlc_core_tpu_torch.device.sharding import process_mesh
+    from dmlc_core_tpu_torch.parallel import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec["device"] == "cpu":
+        torch.set_num_threads(2)
+    distributed.init_from_env(device=spec["device"], backend="gloo")
+    try:
+        mesh_sp = process_mesh((("data", 1), ("seq", 2)),
+                               device=spec["device"])
+        mesh_tp = process_mesh((("data", 1), ("model", 2)),
+                               device=spec["device"])
+        hk.reset_launch_counts()
+        out = lm_world_cases(spec, mesh_sp, mesh_tp)
+        out["launches"] = hk.csr_to_dense_kernel.launches
+        out["rank"] = distributed.rank()
+    finally:
+        distributed.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def lm_world(workdir: str, corpus: str, device: str, sizes: dict,
+             single: dict) -> dict:
+    """(b): one 2-rank gloo world sharing the card, each model held to
+    (a)'s single-rank run on the same windows — parameters at rtol 5e-4,
+    atol 1e-5, the ring model's losses at rtol 1e-5 and the TP model's at
+    rtol 2e-5, atol 2e-5 (the reference's mesh tolerances) — replicas
+    bit-identical, zigzag and the pipeline held to their dense
+    programs."""
+    spec = {"device": device, "corpus": corpus, "sizes": sizes,
+            "lm_params": os.path.join(workdir, "lm_world_lm.npz"),
+            "tp_params": os.path.join(workdir, "lm_world_tp.npz")}
+    path = os.path.join(workdir, "lm_world.json")
+    write_json(path, spec)
+    outs = [os.path.join(workdir, f"lm_world_rank{r}.json")
+            for r in range(2)]
+    script = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    spawn_world(lambda r: [sys.executable, script, "lm-worker", path,
+                           outs[r]], 2, "lm world")
+    seconds = time.perf_counter() - t0
+    res = [json.load(open(p)) for p in outs]
+    report = {"world_s": seconds, "ranks": 2, "backend": "gloo"}
+    for kind, tol in (("lm", dict(rtol=1e-5, atol=0.0)),
+                      ("tp", dict(rtol=2e-5, atol=2e-5))):
+        losses = res[0][kind]["losses"]
+        want = single[kind]["losses"]
+        require(all(r[kind]["losses"] == losses for r in res)
+                and all(r[kind]["replicas_identical"] for r in res),
+                f"lm world {kind}: replicas bit-identical")
+        require(np.allclose(losses, want, **tol), f"lm world {kind}: "
+                f"losses against the single rank at {tol}", got=losses,
+                want=want)
+        with np.load(spec[f"{kind}_params"]) as z:
+            got = [z[f"arr_{i}"] for i in range(len(z.files))]
+        ok, err = params_close(got, single[kind]["_params"], 5e-4, 1e-5)
+        require(ok, f"lm world {kind}: parameters against the single rank "
+                "at rtol 5e-4, atol 1e-5", max_abs_err=err)
+        report[kind] = {
+            "losses": losses, "params_max_abs_err": err,
+            "loss_max_rel": float(np.max(np.abs(np.subtract(losses, want))
+                                         / np.abs(want))),
+            "step_ms_median": 1e3 * max(statistics.median(
+                r[kind]["step_s"]) for r in res),
+            "tokens_per_s": sizes["batch"] * sizes["seq"] / max(
+                statistics.median(r[kind]["step_s"]) for r in res),
+            "peak_device_bytes": max(r[kind]["peak_bytes"] or 0
+                                     for r in res) or None}
+    for case in ("zigzag", "pipeline"):
+        require(all(r[case]["ok"] for r in res), f"lm world {case} "
+                "against its dense program",
+                errs=[r[case]["max_abs_err"] for r in res])
+        report[case] = {"max_abs_err": max(r[case]["max_abs_err"]
+                                           for r in res)}
+    report["kv_exchange"] = {
+        "bytes": res[0]["exchange"]["bytes"],
+        "ms_median": statistics.median(r["exchange"]["ms_median"]
+                                       for r in res)}
+    report["launches"] = sum(r["launches"] for r in res)
+    return report
+
+
+def lm_cli(workdir: str, corpus: str, device: str, sizes: dict) -> dict:
+    """(c): ``python -m dmlc_core_tpu_torch.train_lm`` in a 2-rank world
+    under ``tracker.submit --mesh`` (``--mesh data=1,seq=2``, job
+    checkpoints every 3 steps), then the same command resumed from the
+    step-3 commit (the marker re-committed at step 3, where rank 0 first
+    committed it): steps 3-5 and the step-6 parameters equal the
+    uninterrupted run's."""
+    from dmlc_core_tpu_torch.utils.checkpoint import (commit_job_checkpoint,
+                                                      job_part_uri,
+                                                      restore_checkpoint)
+    scratch = os.path.join(workdir, "lm_cli")
+    os.makedirs(scratch)
+    runs = {}
+    for name in ("whole", "resumed"):
+        base = "file://" + os.path.join(scratch, f"{name}.job")
+        cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.train_lm", corpus,
+               "--mesh", "data=1,seq=2", "--steps", str(sizes["steps"]),
+               "--seq", str(sizes["seq"]), "--embed", str(sizes["embed"]),
+               "--heads", str(sizes["heads"]),
+               "--layers", str(sizes["layers"]),
+               "--checkpoint", base, "--ckpt-every", str(LM_CKPT_EVERY),
+               "--backend", "gloo"]
+        if device != "cuda":
+            cmd += ["--device", device]
+        if name == "resumed":
+            whole = "file://" + os.path.join(scratch, "whole.job")
+            commit_job_checkpoint(whole, LM_CKPT_EVERY, 1)
+            cmd += ["--resume", whole]
+        argv = [sys.executable, "-m", "dmlc_core_tpu_torch.tracker.submit",
+                "--cluster", "local", "--num-workers", "2", "--mesh", "--",
+                *cmd]
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, env=env, capture_output=True, text=True,
+                              timeout=DP_TIMEOUT_S, cwd=scratch)
+        seconds = time.perf_counter() - t0
+        require(proc.returncode == 0, f"lm cli {name}: submit failed",
+                rc=proc.returncode, log=(proc.stdout + proc.stderr)[-3000:])
+        lines = {}
+        for step, loss in re.findall(r"step (\d+): loss (\d+\.\d{4})",
+                                     proc.stdout):
+            require(lines.setdefault(int(step), loss) == loss,
+                    f"lm cli {name}: the ranks printed different losses",
+                    step=step)
+        final = job_part_uri(base, sizes["steps"], 0, 1)
+        params, at, _ = restore_checkpoint(final)
+        runs[name] = {"seconds": seconds, "lines": lines,
+                      "resumed": "resumed from committed job checkpoint"
+                      in proc.stdout, "params": params, "step": at}
+    whole, resumed = runs["whole"], runs["resumed"]
+    tail = list(range(LM_CKPT_EVERY, sizes["steps"]))
+    require(sorted(whole["lines"]) == list(range(sizes["steps"]))
+            and sorted(resumed["lines"]) == tail and resumed["resumed"],
+            "lm cli: the steps of each run", whole=sorted(whole["lines"]),
+            resumed=sorted(resumed["lines"]))
+    a = np.asarray([float(resumed["lines"][s]) for s in tail])
+    b = np.asarray([float(whole["lines"][s]) for s in tail])
+    require(np.allclose(a, b, rtol=1e-5, atol=0), "lm cli: steps 3-5 of "
+            "the resumed run against the uninterrupted run at rtol 1e-5",
+            got=a.tolist(), want=b.tolist())
+    ok, err = params_close(list(resumed["params"].values()),
+                           list(whole["params"].values()), 1e-5, 0.0)
+    require(ok and resumed["step"] == whole["step"] == sizes["steps"],
+            "lm cli: the resumed run's final parameters against the "
+            "uninterrupted run's at rtol 1e-5", max_abs_err=err)
+    return {"whole_s": whole["seconds"], "resumed_s": resumed["seconds"],
+            "losses": [whole["lines"][s] for s in range(sizes["steps"])],
+            "resumed_losses": [resumed["lines"][s] for s in tail],
+            "final_params_max_abs_err": err}
+
+
+def lm_phase(workdir: str, device: str = "cuda", seq: int = LM_SEQ,
+             embed: int = LM_EMBED, layers: int = LM_LAYERS) -> dict:
+    """The LM lane on the card: (a) both models on one rank against the
+    CPU, (b) a 2-rank world of the ring, TP + MoE, zigzag and the
+    pipeline, (c) the CLI under the tracker with a resume. The kernel's
+    launches are counted over the phase: the lane launches none."""
+    sizes = {"seq": seq, "embed": embed, "heads": LM_HEADS,
+             "layers": layers, "batch": LM_BATCH, "steps": LM_STEPS}
+    corpus = lm_corpus(workdir)
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    single = lm_single(workdir, corpus["path"], device, sizes)
+    t1 = time.perf_counter()
+    world = lm_world(workdir, corpus["path"], device, sizes, single)
+    t2 = time.perf_counter()
+    cli = lm_cli(workdir, corpus["path"], device, sizes)
+    t3 = time.perf_counter()
+    launches = hk.csr_to_dense_kernel.launches + world.pop("launches")
+    require(launches == 0, "lm: the lane launches no csr_to_dense",
+            launches=launches)
+    out = {"phase": "lm", "device": device,
+           "corpus": {k: corpus[k] for k in ("bytes", "sha256", "files")},
+           "sizes": sizes, "lr": LM_LR, "experts": LM_EXPERTS,
+           "single": {k: {n: v for n, v in r.items() if n != "_params"}
+                      for k, r in single.items()},
+           "world": world, "cli": cli,
+           "seconds": {"single": t1 - t0, "world": t2 - t1,
+                       "cli": t3 - t2},
+           "card": "one card: the 2-rank worlds of (b) and (c) share it "
+           "over gloo (NCCL refuses two ranks on one card), every ring "
+           "and pipeline exchange staged through the host",
+           "reduced": {"steps": f"{LM_STEPS} (the CLI's default: 20)",
+                       "world_ranks": 2, **{
+                           k: sizes[k] for k, full in (
+                               ("seq", LM_SEQ), ("embed", LM_EMBED),
+                               ("layers", LM_LAYERS)) if sizes[k] != full}},
+           "launches": {"csr_to_dense": launches}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["dp-worker"]:
         return dp_worker(*sys.argv[2:4])
@@ -2923,6 +3417,8 @@ def main() -> int:
         return job_elastic_worker(sys.argv[2])
     if sys.argv[1:2] == ["job-mesh-worker"]:
         return job_mesh_worker(sys.argv[2])
+    if sys.argv[1:2] == ["lm-worker"]:
+        return lm_worker(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA GPU", file=sys.stderr)
@@ -2964,6 +3460,7 @@ def main() -> int:
         rank_phase(workdir, data)
         dp = dp_phase(workdir, data, run, params)
         job = job_phase(workdir, data)
+        lm = lm_phase(workdir)
 
     main_case = cases["train_65536x28"]
     emit({"kernels": [{
@@ -2975,7 +3472,8 @@ def main() -> int:
                      + tel["launches"]["csr_to_dense"]
                      + lanes["launches"]["csr_to_dense"]
                      + dp["launches"]["csr_to_dense"]
-                     + job["launches"]["csr_to_dense"]),
+                     + job["launches"]["csr_to_dense"]
+                     + lm["launches"]["csr_to_dense"]),
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3,

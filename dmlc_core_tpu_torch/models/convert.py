@@ -3,7 +3,10 @@
 The reference's parameters are passed as numpy arrays (``np.asarray`` of
 each leaf), so this module needs nothing of JAX; the way back gives the
 ``{"w", "b"}`` / ``{"b", "w", "v"}`` dict that ``serving.model.save_model``
-takes and that the reference's parameter types are built from.
+takes and that the reference's parameter types are built from. The LM
+lane's trees are the reference's WHOLE matrices; a tensor-parallel rank's
+parameters are its shards of them, sliced on the way in (``qkv`` by head)
+and gathered on the way out.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from dmlc_core_tpu_torch.models.fm import FMParams
 from dmlc_core_tpu_torch.models.linear import LinearParams
 
 __all__ = ["linear_params_from_numpy", "linear_params_to_numpy",
-           "fm_params_from_numpy", "fm_params_to_numpy"]
+           "fm_params_from_numpy", "fm_params_to_numpy",
+           "lm_params_from_numpy", "lm_params_to_numpy"]
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -53,3 +57,18 @@ def fm_params_to_numpy(params: FMParams) -> Dict[str, np.ndarray]:
     host."""
     return {name: getattr(params, name).detach().cpu().numpy()
             for name in FMParams._fields}
+
+
+def lm_params_from_numpy(tree, model):
+    """An LM parameter tree (the reference's nested dict of whole numpy
+    matrices) as this rank's parameters of ``model`` (a
+    ``TransformerLM`` or ``TPTransformerLM``), on its device: the whole
+    tree, or a tensor-parallel rank's shards of it."""
+    return model.from_numpy(tree)
+
+
+def lm_params_to_numpy(params, model):
+    """The WHOLE LM parameter tree of ``model``'s ``params`` as numpy
+    float32 arrays. A ``TPTransformerLM``'s shards are gathered over its
+    "model" axis, a collective every rank of that axis must call."""
+    return model.gather_numpy(params)

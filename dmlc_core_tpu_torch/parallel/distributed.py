@@ -22,10 +22,17 @@ collective's buffer lives where the backend wants it: on the CPU for gloo
 (gloo stages CUDA tensors through the host anyway), on this rank's card
 for NCCL; results come back on the caller's device. Every process must
 issue the same collectives in the same order (the Rabit contract).
+
+A ``torch.distributed`` call that fails inside the port's collectives
+raises a ``torch.distributed.DistError``: the backend's own, or
+:class:`CollectiveError` for what gloo reports as a bare ``RuntimeError``
+(a peer whose connection closed). A caller tells a lost peer from an
+error of its own by that type alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
@@ -41,11 +48,30 @@ from dmlc_core_tpu_torch.utils.checkpoint import _leaves_with_keys, _rebuild
 
 __all__ = ["init_from_env", "allreduce", "allreduce_tree", "allgather_bytes",
            "barrier", "broadcast", "rank", "world_size", "allreduce_sum_",
-           "shutdown"]
+           "shutdown", "CollectiveError", "collective_call"]
 
 logger = logging.getLogger("dmlc_core_tpu_torch.parallel")
 
 _OPS = ("sum", "max", "min", "mean")
+
+
+class CollectiveError(dist.DistError):
+    """A ``torch.distributed`` call failed on its transport, where the
+    backend raised a bare ``RuntimeError`` (gloo's error when a peer's
+    connection closes)."""
+
+
+@contextlib.contextmanager
+def collective_call():
+    """Around one ``torch.distributed`` call: its bare ``RuntimeError``
+    comes out as :class:`CollectiveError`. The backend's ``DistError``s
+    and CUDA's out-of-memory error pass as they are."""
+    try:
+        yield
+    except (dist.DistError, torch.cuda.OutOfMemoryError):
+        raise
+    except RuntimeError as e:
+        raise CollectiveError(str(e)) from e
 
 
 def _collective_timeout() -> datetime.timedelta:
@@ -150,27 +176,31 @@ def allreduce_sum_(buf: torch.Tensor, group=None) -> torch.Tensor:
     data-parallel step's reduction); under gloo the buffer goes through a
     host copy, once each way. Every rank ends with the same bits."""
     comm = _comm_device(group)
-    if buf.device == comm:
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-        return buf
-    staged = buf.to(comm)
-    dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
-    return buf.copy_(staged)
+    staged = buf if buf.device == comm else buf.to(comm)
+    with collective_call():
+        dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
+    return buf if staged is buf else buf.copy_(staged)
 
 
-def allgather_bytes(payload: bytes, name: str = "ag") -> List[bytes]:
-    """All-gather one bytes payload per process; returns the rank-ordered
-    list on every process. Two collectives: the lengths, then the payloads
-    padded to the longest. ``name`` is the reference's KV-key tag, kept
-    for its signature."""
+def _group_size(group) -> int:
+    return world_size() if group is None else dist.get_world_size(group)
+
+
+def allgather_bytes(payload: bytes, name: str = "ag",
+                    group=None) -> List[bytes]:
+    """All-gather one bytes payload per process (of ``group``, default the
+    world); returns the rank-ordered list on every process. Two
+    collectives: the lengths, then the payloads padded to the longest.
+    ``name`` is the reference's KV-key tag, kept for its signature."""
     del name
-    n = world_size()
+    n = _group_size(group)
     if n == 1:
         return [payload]
-    comm = _comm_device()
+    comm = _comm_device(group)
     size = torch.tensor([len(payload)], dtype=torch.int64, device=comm)
     sizes = [torch.empty_like(size) for _ in range(n)]
-    dist.all_gather(sizes, size)
+    with collective_call():
+        dist.all_gather(sizes, size, group=group)
     lengths = [int(s) for s in sizes]
     if max(lengths) == 0:
         return [b""] * n
@@ -178,7 +208,8 @@ def allgather_bytes(payload: bytes, name: str = "ag") -> List[bytes]:
     host[:len(payload)] = np.frombuffer(payload, np.uint8)
     buf = torch.from_numpy(host).to(comm)
     bufs = [torch.empty_like(buf) for _ in range(n)]
-    dist.all_gather(bufs, buf)
+    with collective_call():
+        dist.all_gather(bufs, buf, group=group)
     return [b[:k].cpu().numpy().tobytes() for b, k in zip(bufs, lengths)]
 
 
@@ -187,25 +218,27 @@ def barrier(name: str = "barrier") -> None:
     kept for its signature."""
     del name
     if world_size() > 1:
-        dist.barrier()
+        with collective_call():
+            dist.barrier()
 
 
-def allreduce(x, op: str = "sum") -> torch.Tensor:
+def allreduce(x, op: str = "sum", group=None) -> torch.Tensor:
     """Rabit-equivalent Allreduce: each process contributes one value; the
     elementwise reduction comes back on every process, on the input's
     device. As the reference on its host transport, the values ride one
     packed all-gather (:func:`allgather_bytes`) and every rank reduces the
     rank-ordered stack with numpy (``_reduce_stack``), so sums and means
     are the same bits for any number of ranks and any backend (``mean``
-    of integers is float64, numpy's mean). A one-process job returns the
-    input as a tensor."""
+    of integers is float64, numpy's mean). ``group`` reduces over its
+    ranks only (default the world). A one-process job returns the input
+    as a tensor."""
     if op not in _OPS:
         raise ValueError(f"op must be one of {_OPS}")
     t = torch.as_tensor(x)
-    if world_size() == 1:
+    if _group_size(group) == 1:
         return t
     arr = _host_array(t)
-    blobs = allgather_bytes(arr.tobytes(), name="ar")
+    blobs = allgather_bytes(arr.tobytes(), name="ar", group=group)
     stack = np.stack([np.frombuffer(b, dtype=arr.dtype).reshape(arr.shape)
                       for b in blobs])
     # np.array keeps a 0-d result 0-d (ascontiguousarray would not)
@@ -228,26 +261,28 @@ def _host_array(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def allreduce_tree(tree: Any, op: str = "mean") -> Any:
+def allreduce_tree(tree: Any, op: str = "mean", group=None) -> Any:
     """Elementwise cross-process reduction of a whole tree (NamedTuple,
     dict, list, tuple) in ONE collective: the leaves' bytes ride a single
     packed all-gather and are reduced on the host in RANK ORDER, so the
     result is bit-deterministic across runs, as in the reference. Tensor
     leaves come back as tensors on their device and dtype; other leaves
-    come back as numpy."""
+    come back as numpy. ``group`` reduces over its ranks only (default
+    the world)."""
     if op not in _OPS:
         raise ValueError(f"op must be one of {_OPS}")
-    n = world_size()
+    n = _group_size(group)
     if n == 1:
         return tree
     leaves = [leaf for _, leaf in _leaves_with_keys(tree)]
     arrays = [_host_array(leaf) for leaf in leaves]
     payload = b"".join(a.tobytes() for a in arrays)
-    comm = _comm_device()
+    comm = _comm_device(group)
     packed = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).to(
         comm)
     gathered = [torch.empty_like(packed) for _ in range(n)]
-    dist.all_gather(gathered, packed)
+    with collective_call():
+        dist.all_gather(gathered, packed, group=group)
     blobs = [g.cpu().numpy().tobytes() for g in gathered]
     out, offset = [], 0
     for leaf, arr in zip(leaves, arrays):
@@ -270,5 +305,6 @@ def broadcast(x, root: int = 0) -> torch.Tensor:
     if world_size() == 1:
         return t
     work = t.detach().to(_comm_device()).reshape(-1).clone()
-    dist.broadcast(work, src=root)
+    with collective_call():
+        dist.broadcast(work, src=root)
     return work.reshape(t.shape).to(t.device)

@@ -1051,7 +1051,7 @@ def flight_dump(reason: str, rank: Optional[int] = None) -> Optional[str]:
     and a full snapshot written to ``flight_<pid>_<n>.json`` there, with
     ``rank`` (the world rank, or None). Returns the file's path, else
     None. A failure to write is swallowed: a postmortem must never mask
-    the failure it records."""
+    the failure it records. The file appears whole or not at all."""
     emit_event("flight-dump", reason=reason)
     out_dir = os.environ.get("DMLC_TRACE_DUMP")
     if not out_dir:
@@ -1067,9 +1067,13 @@ def flight_dump(reason: str, rank: Optional[int] = None) -> Optional[str]:
                "metrics": snapshot()}
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"flight_{os.getpid()}_{seq}.json")
-        with open(path, "w") as f:
+        # written aside and renamed: a dying process (another thread's
+        # os._exit, a SIGKILL) leaves at most a .tmp file, never a
+        # truncated dump under the name readers look for
+        with open(path + ".tmp", "w") as f:
             json.dump(doc, f)
             f.write("\n")
+        os.replace(path + ".tmp", path)
         return path
     except Exception:
         return None

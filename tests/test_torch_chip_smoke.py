@@ -389,3 +389,37 @@ def test_job_run_b_rehearsal_on_cpu(job_s3):
     assert b["survivor_cause"] in ("sigterm", "collective-error",
                                    "tracker-abort")
     assert len(b["abort_reasons"]) == 1  # one abort, whatever came first
+
+
+def test_lm_phase_rehearsal_on_cpu(tmp_path, one_thread):
+    """The ``lm`` phase end to end on the CPU at a small size (embed 32,
+    seq 64, 1 layer; the card runs embed 128, seq 2048, 2 layers): both
+    models on one rank, the 2-rank world of the ring, TP + MoE, zigzag,
+    the pipeline and the K/V exchange held to the single rank and the
+    dense programs, and the CLI under ``tracker.submit --mesh`` resumed
+    from its step-3 commit."""
+    out = cs.lm_phase(str(tmp_path), device="cpu", seq=64, embed=32,
+                      layers=1)
+    assert out["corpus"]["bytes"] > 300_000
+    assert out["corpus"]["files"][0] == "SURVEY.md"
+    assert out["launches"] == {"csr_to_dense": 0}
+    for kind in ("lm", "tp"):
+        single = out["single"][kind]
+        assert len(single["losses"]) == cs.LM_STEPS
+        assert single["peak_device_bytes"] is None  # no device on the CPU
+        assert single["fp32_peak_share"] is None
+        assert out["world"][kind]["loss_max_rel"] <= 2e-5
+    assert out["world"]["kv_exchange"]["bytes"] == 2 * 8 * 32 * 32 * 4
+    assert out["cli"]["resumed_losses"] == out["cli"]["losses"][3:]
+
+
+def test_lm_step_flops_count_the_matmuls():
+    sizes = {"seq": 2048, "embed": 128, "heads": 4, "layers": 2,
+             "batch": 8, "steps": 6}
+    B, S, D = 8, 2048, 128
+    attn = 2 * B * S * D * 3 * D + 4 * B * S * S * D + 2 * B * S * D * D
+    logits = 2 * B * S * D * 256
+    assert cs.lm_step_flops("lm", sizes) == 3 * (
+        2 * (attn + 4 * B * S * D * 4 * D) + logits)
+    moe = 2 * B * S * D * 4 + 4 * B * S * 4 * D * 4 * D + 2 * B * S * 4 * D
+    assert cs.lm_step_flops("tp", sizes) == 3 * (2 * (attn + moe) + logits)

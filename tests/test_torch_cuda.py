@@ -447,3 +447,69 @@ def test_gloo_world_shares_one_card(cuda_device, tmp_path, monkeypatch):
     np.testing.assert_allclose(r0["logistic/losses"], losses, rtol=1e-5)
     np.testing.assert_allclose(r0["logistic/param.w"],
                                params.w.cpu().numpy(), rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", ["lm", "tp"])
+def test_lm_steps_on_cuda_match_cpu(cuda_device, kind):
+    """The LM lane's models on a 1 x 1 mesh of the card against the same
+    steps on the CPU: losses at rtol 1e-4, parameters at the reference's
+    mesh tolerance (rtol 5e-4, atol 1e-5)."""
+    from dmlc_core_tpu_torch.device.sharding import process_mesh
+    from dmlc_core_tpu_torch.models.convert import lm_params_to_numpy
+    from dmlc_core_tpu_torch.models.tp_transformer import (
+        TPTransformerConfig, TPTransformerLM)
+    from dmlc_core_tpu_torch.models.transformer import (TransformerConfig,
+                                                        TransformerLM,
+                                                        leaves)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 64, size=(3, 4, 129))
+
+    def run(device):
+        if kind == "lm":
+            mesh = process_mesh((("data", 1), ("seq", 1)), device=device)
+            model = TransformerLM(TransformerConfig(
+                vocab=64, max_seq=128, embed=32, heads=4, layers=2), mesh,
+                learning_rate=0.05)
+        else:
+            mesh = process_mesh((("data", 1), ("model", 1)), device=device)
+            model = TPTransformerLM(TPTransformerConfig(
+                vocab=64, max_seq=128, embed=32, heads=4, layers=2,
+                moe_experts=4), mesh, learning_rate=0.05)
+        params = model.init(seed=0)
+        losses = []
+        for t in toks:
+            params, loss = model.step(params, t[:, :-1], t[:, 1:])
+            losses.append(float(loss))
+        assert next(iter(leaves(params))).device.type == mesh.device.type
+        return losses, leaves(lm_params_to_numpy(params, model))
+
+    (lc, pc), (lg, pg) = run("cpu"), run(cuda_device)
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for a, b in zip(pg, pc):
+        np.testing.assert_allclose(a, b, rtol=5e-4, atol=1e-5)
+
+
+def test_ring_attention_on_cuda_matches_dense(cuda_device):
+    """An axis of one on the card: the contiguous and zigzag rings equal
+    the dense oracle, values and input gradients (rtol 2e-4, atol
+    2e-5)."""
+    from dmlc_core_tpu_torch.ops.attention import mha_reference
+    from dmlc_core_tpu_torch.parallel.ring import sequence_parallel_attention
+    rng = np.random.default_rng(1)
+    host = [torch.from_numpy(rng.normal(size=(2, 256, 4, 32)).astype(
+        np.float32)) for _ in range(3)]
+    w = torch.from_numpy(rng.normal(size=(2, 256, 4, 32)).astype(
+        np.float32)).to(cuda_device)
+    want = [t.to(cuda_device).requires_grad_() for t in host]
+    (mha_reference(*want, causal=True) * w).sum().backward()
+    for layout in ("contiguous", "zigzag"):
+        got = [t.to(cuda_device).requires_grad_() for t in host]
+        out = sequence_parallel_attention(*got, None, causal=True,
+                                          layout=layout)
+        (out * w).sum().backward()
+        torch.testing.assert_close(
+            out, mha_reference(*want, causal=True).detach(), rtol=2e-4,
+            atol=2e-5)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.grad, b.grad, rtol=2e-4,
+                                       atol=2e-5)

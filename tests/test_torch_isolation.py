@@ -38,9 +38,12 @@ import dmlc_core_tpu_torch
 names = ["dmlc_core_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(dmlc_core_tpu_torch.__path__,
                                           "dmlc_core_tpu_torch.")]
-# the fourth to seventh slices' modules by name, so none can drop out
+# the fourth to eighth slices' modules by name, so none can drop out
 # unnoticed
-for mod in ("io.convert", "ops.ranking", "models.fm", "models.convert",
+for mod in ("ops.attention", "parallel.axis", "parallel.ring",
+            "parallel.pipeline_parallel", "models.transformer",
+            "models.tp_transformer", "train_lm",
+            "io.convert", "ops.ranking", "models.fm", "models.convert",
             "device.device_iter", "train", "parallel",
             "parallel.distributed", "device.sharding", "data", "config",
             "params", "registry", "utils.timer", "telemetry",
@@ -66,7 +69,7 @@ def test_port_imports_without_jax_or_reference():
         capture_output=True, text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 50  # every module of the seven slices
+    assert n >= 57  # every module of the eight slices
 
 
 BLOCK = BLOCKED_IMPORT_PROBE.split("import dmlc_core_tpu_torch\n")[0]
@@ -190,6 +193,22 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         train.main([str(p), "--epochs", "1"])
     with pytest.raises(DMLCError, match="no CUDA device"):
         train.main([str(p), "--epochs", "1", "--model", "fm"])
+    # the LM lane
+    from dmlc_core_tpu_torch import train_lm
+    from dmlc_core_tpu_torch.device.sharding import (host_data_mesh,
+                                                     process_mesh)
+    corpus = tmp_path / "c.txt"
+    corpus.write_bytes(b"abcdefgh" * 64)
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        process_mesh((("data", 1), ("seq", 1)))
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        host_data_mesh()
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        train_lm.main([str(corpus), "--seq", "16", "--steps", "1"])
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        train_lm.main([str(corpus), "--seq", "16", "--steps", "1",
+                       "--model", "tp", "--mesh", "data=1,model=1"])
+    assert process_mesh((("data", 1),), device="cpu").device.type == "cpu"
     # an explicit device is honoured
     assert LinearLearner(2, device="cpu").init().w.device.type == "cpu"
     assert ScoringModel.load(art, device="cpu").device.type == "cpu"
