@@ -8,9 +8,12 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
 
 1. ``env``     — the card, its power limit, torch and CUDA versions; TF32
                  off for matmuls and cuDNN (the reference asks for full f32).
-2. ``build``   — the CUDA kernel (``csrc/*.cu``, sm_90a) and the native core
-                 (``cpp/``), both from the checkout's sources into
-                 ``dmlc_core_tpu_torch/_build/``; seconds each and ptxas info.
+2. ``build``   — the CUDA kernel (``csrc/*.cu``, sm_90a), the native core
+                 (``cpp/``) and the bench's ``bench_pipeline`` (g++ of
+                 ``cpp/test/bench_pipeline.cc``), all from the checkout's
+                 sources into ``dmlc_core_tpu_torch/_build/`` at once;
+                 the kernel's and the native core's seconds, the seconds
+                 until the last build finished, and ptxas info.
    ``data``    — the HIGGS-shaped libsvm file (28 features, 524,288 rows)
                  and the port's converter's ``.crec`` and bf16 ``.drec``
                  files of it, as ``bench.py`` converts HIGGS; the text
@@ -168,6 +171,23 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  steps, then resumed from the step-3 commit: the printed
                  losses of steps 3-5 and the step-6 parameters at rtol
                  1e-5. The lane launches no ``csr_to_dense``.
+12. ``bench``  — ``python -m dmlc_core_tpu_torch.bench --rows 524288``,
+                 the port's counterpart of ``bench.py``, in a process
+                 session of its own under its own timeout, on the bench's
+                 own seeded HIGGS-shaped file (``bench.py``'s bytes): one
+                 JSON line on stdout with the metric
+                 ``higgs_libsvm_ingest_rows_per_sec`` and a value above 0,
+                 the card's ``name, power.limit`` in ``extras.device``,
+                 ``hbm_ingest_bw_util`` in (0, 1] with the pinned-copy
+                 probe, not the lane's own best epoch, setting its
+                 denominator (headline, ``recd`` lane, device lane), the
+                 kernel probe's check (kernel against plain version at
+                 1e-5) passed with launches, the device lane's every row
+                 counted, the serving lane without errors, an SLO page or
+                 a new shape after its warm-up, the mesh lane's
+                 ``steps_per_sec`` and ``recovery_s``, and the record line
+                 it appended. The kernel's launches are the probe's, less
+                 its correctness check.
 
 Each configuration keeps its published widths; row counts are cut, and
 each phase's JSON names the cut (``reduced``).
@@ -186,6 +206,7 @@ import hashlib
 import http.client
 import io
 import json
+import math
 import os
 import random
 import re
@@ -205,6 +226,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from dmlc_core_tpu_torch import telemetry  # noqa: E402
+from dmlc_core_tpu_torch.bench import host_lanes  # noqa: E402
+from dmlc_core_tpu_torch.bench.kernel_probe import (  # noqa: E402
+    FP32_FLOP_PER_S, bound_ms)
+from dmlc_core_tpu_torch.bench.record import card_line  # noqa: E402
 from dmlc_core_tpu_torch.data import (RowBlockContainer,  # noqa: E402
                                       RowBlockIter)
 from dmlc_core_tpu_torch.device import device_iter  # noqa: E402
@@ -223,10 +248,6 @@ from dmlc_core_tpu_torch.serving.server import ScoringServer  # noqa: E402
 from dmlc_core_tpu_torch.utils.checkpoint import (  # noqa: E402
     restore_checkpoint, save_checkpoint)
 from dmlc_core_tpu_torch.utils.timer import trace_span  # noqa: E402
-
-# H100 SXM data sheet peaks (the bound's denominators)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 
 FEATURES = 28          # HIGGS's published width
 BATCH_ROWS = 65536     # the DeviceRowBlockIter default
@@ -248,17 +269,6 @@ def emit(obj) -> None:
 def require(cond: bool, what: str, **detail) -> None:
     if not cond:
         raise CheckFailed(f"{what}: {json.dumps(detail, default=str)}")
-
-
-def card_line() -> str:
-    """``name, power.limit`` of GPU 0 as nvidia-smi reports them."""
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    lines = proc.stdout.strip().splitlines()
-    return lines[0].strip() if proc.returncode == 0 and lines else \
-        f"nvidia-smi failed (exit {proc.returncode})"
 
 
 # -- timing ------------------------------------------------------------------
@@ -431,22 +441,6 @@ def check_against_f64(got, r, c, v, R, F) -> "tuple[bool, float]":
     return bool((err <= bound).all()), share
 
 
-def bound_ms(row, col, rows: int, features: int) -> "tuple[float, str]":
-    """Least time for the function on these inputs, from what this data
-    needs: every row id read (4 B) to find padding and out-of-range rows,
-    the column id of each in-range row (4 B) and the value of each kept
-    nonzero (4 B), the f32 output written once; against one f32 add per
-    kept nonzero."""
-    row_ok = (row >= 0) & (row < rows)
-    n_row_ok = int(row_ok.sum())
-    kept = int((row_ok & (col >= 0) & (col < features)).sum())
-    t_bytes = (4 * (row.numel() + n_row_ok + kept)
-               + 4 * rows * features) / HBM_BYTES_PER_S
-    t_ops = kept / FP32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def check_case(got, want, tol, r, c, v, R, F, rec: dict,
                prefix: str = "") -> bool:
     """Whether ``got`` matches the plain version ``want`` at ``tol`` (see
@@ -512,6 +506,24 @@ def start_previous_kernel_build() -> "tuple[subprocess.Popen, str]":
          "-o", lib, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     return proc, lib
+
+
+def start_bench_pipeline_build() -> "tuple[subprocess.Popen, str]":
+    """Start g++ on the bench's engine-level RecordIO program (its
+    ``recordio_roundtrip`` lane runs it) beside the other builds; returns
+    the process and the file it writes."""
+    os.makedirs(hk.BUILD_DIR, exist_ok=True)
+    tmp = f"{host_lanes.BENCH_PIPELINE}.tmp{os.getpid()}"
+    proc = subprocess.Popen(host_lanes.bench_pipeline_command(tmp),
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def finish_bench_pipeline_build(proc: subprocess.Popen, tmp: str) -> None:
+    log = proc.communicate(timeout=900)[0]
+    require(proc.returncode == 0, "bench_pipeline build", log=log[-2000:])
+    os.replace(tmp, host_lanes.BENCH_PIPELINE)
 
 
 _previous_scatter = None
@@ -3410,6 +3422,135 @@ def lm_phase(workdir: str, device: str = "cuda", seq: int = LM_SEQ,
     return out
 
 
+# -- phase 12: the bench -----------------------------------------------------
+BENCH_TIMEOUT_S = 900
+
+
+def best_epoch_bytes_per_sec(lane: dict, rows_per_sec: float) -> float:
+    """A lane's best epoch in bytes/s: its median bytes/s scaled by its
+    best epoch's rows/s over its median rows/s."""
+    return (lane["device_bytes_per_sec"] * lane["e2e_spread_rows_per_sec"][1]
+            / rows_per_sec)
+
+
+def check_bench_result(res: dict, records: list, device: str,
+                       rows: int) -> None:
+    """The gates on the bench's JSON line ``res`` and the records it
+    appended, for a run on ``device`` at ``rows``.
+
+    The bandwidth shares divide by the best rate any probe or the lane's
+    own best epoch saw (the reference's ``max()``), so they cannot pass 1
+    whatever the probes read. The gates ask more: that the pinned-copy
+    probe set the denominator, its rate at least the best epoch's, for the
+    headline, the ``recd`` (zero-parse) lane and, on the card, the device
+    lane's replay.
+    A probe that reads too low (pageable memory, the wrong stream) fails
+    here instead of hiding behind the ``max()``."""
+    ex = res["extras"]
+    require(res["metric"] == "higgs_libsvm_ingest_rows_per_sec"
+            and res["unit"] == "rows/s" and res["value"] > 0,
+            "bench: the headline", metric=res["metric"], value=res["value"])
+    want_device = card_line() if device == "cuda" else "cpu"
+    require(ex["device"] == want_device, "bench: the card in extras.device",
+            got=ex["device"], want=want_device)
+    require(all(0 < ex[k] <= 1.0 for k in ("hbm_ingest_bw_util",
+                                            "hbm_ingest_bw_util_best")),
+            "bench: the bandwidth share in (0, 1]",
+            util=ex["hbm_ingest_bw_util"],
+            best=ex["hbm_ingest_bw_util_best"])
+    for name, lane, rps in (("headline", ex, res["value"]),
+                            ("recd_lane", ex["recd_lane"],
+                             ex["recd_lane"]["rows_per_sec"])):
+        best = best_epoch_bytes_per_sec(lane, rps)
+        require(lane["attainable_pytree_bytes_per_sec"] >= best,
+                "bench: the copy probe sets the share's denominator",
+                lane=name, probe=lane["attainable_pytree_bytes_per_sec"],
+                best_epoch=best)
+    probe = ex["csr_to_dense_kernel"]
+    if device == "cuda":
+        require(probe.get("launches", 0) >= 1 and "check" in probe
+                and probe["max_abs_err"] <= 1e-5,
+                "bench: the kernel probe checked and launched", probe=probe)
+    dl = ex["device_lane"]
+    require(dl["rows"] == rows and dl["backend"] == device
+            and 0 < dl["hbm_ingest_bw_util"] <= 1.0,
+            "bench: the device lane counted every row", lane=dl)
+    if device == "cuda":
+        # on the card every replayed batch is a copy (on the CPU the
+        # replay hands the cache's memory over and outruns any copy); the
+        # best-epoch share divides by max(probe, best epoch), so it is
+        # below 1 only where the probe outran the best epoch
+        require(dl["zero_copy_batches_total"] == 0
+                and 0 < dl["hbm_ingest_bw_util_best"] < 1.0,
+                "bench: the device lane's copy probe sets the share's "
+                "denominator", lane=dl)
+    sl = ex["serving_lane"]
+    require(sl["errors"] == 0 and sl["slo_burn_clean"] == 0
+            and sl["steady_new_shapes"] == 0 and sl["completed"] > 0,
+            "bench: the serving lane", lane=sl)
+    ml = ex["mesh_lane"]
+    require(ml["steps_per_sec"] > 0 and 0 < ml["recovery_s"] < math.inf,
+            "bench: the mesh lane's numbers", lane=ml)
+    require(len(records) == 1 and records[0]["metric"] == res["metric"]
+            and records[0]["value"] == res["value"]
+            and {"device_lane", "mesh_lane", "serving_lane"}
+            <= set(records[0]["lanes"]),
+            "bench: the record", records=records)
+
+
+def bench_phase(workdir: str) -> dict:
+    """``python -m dmlc_core_tpu_torch.bench --rows TRAIN_ROWS`` in a
+    process session of its own under its own timeout (every process it
+    starts is gone when this returns), its record going to the workdir;
+    then :func:`check_bench_result`. The kernel's launches are the bench's
+    kernel probe's (counted in its child)."""
+    history = os.path.join(workdir, "bench_history_torch.jsonl")
+    cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.bench",
+           f"--rows={TRAIN_ROWS}"]
+    env = dict(os.environ, DMLC_BENCH_HISTORY=history,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("DCT_CSR_TO_DENSE", None)  # the bench's own settings
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        stdout, stderr = "", "timed out"
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, "bench: the run failed",
+            rc=proc.returncode, stderr=stderr[-3000:])
+    lines = [ln for ln in stdout.splitlines() if ln.strip()]
+    require(len(lines) == 1, "bench: one JSON line on stdout",
+            stdout=stdout[-2000:])
+    res = json.loads(lines[0])
+    with open(history) as f:
+        records = [json.loads(line) for line in f if line.strip()]
+    check_bench_result(res, records, "cuda", TRAIN_ROWS)
+    ex = res["extras"]
+    out = {"phase": "bench", "device": "cuda", "seconds": seconds,
+           "cmd": " ".join(cmd[1:]), "metric": res["metric"],
+           "value": res["value"], "vs_baseline": res["vs_baseline"],
+           "extras": {k: v for k, v in ex.items()
+                      if k not in ("host_resources", "provenance")},
+           "lane_seconds": {k: v.get("wall_s") for k, v in
+                            ex["host_resources"]["lanes"].items()},
+           "host": ex["provenance"]["host"],
+           "reduced": {"rows": f"{TRAIN_ROWS} (HIGGS: 11,000,000; "
+                       "bench.py's default run: 200,000)"},
+           "launches": {"csr_to_dense": ex["csr_to_dense_kernel"]["launches"]}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["dp-worker"]:
         return dp_worker(*sys.argv[2:4])
@@ -3433,14 +3574,19 @@ def main() -> int:
           "capability": list(torch.cuda.get_device_capability(0))})
 
     t0 = time.perf_counter()
-    # every nvcc at once: the kernel's and its previous version's
+    # every compiler at once: the kernel's and its previous version's
+    # nvcc, the bench's g++ beside the native core's
     previous = start_previous_kernel_build()
+    pipeline = start_bench_pipeline_build()
     kernel_log = hk.build() or ""
     load_previous_kernel(*previous)
     t1 = time.perf_counter()
     native.build()
     t2 = time.perf_counter()
+    finish_bench_pipeline_build(*pipeline)
+    t3 = time.perf_counter()
     emit({"phase": "build", "kernel_s": t1 - t0, "native_s": t2 - t1,
+          "all_builds_s": t3 - t0,
           "ptxas": [ln for ln in kernel_log.splitlines() if "ptxas" in ln]})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
@@ -3461,6 +3607,7 @@ def main() -> int:
         dp = dp_phase(workdir, data, run, params)
         job = job_phase(workdir, data)
         lm = lm_phase(workdir)
+        bench = bench_phase(workdir)
 
     main_case = cases["train_65536x28"]
     emit({"kernels": [{
@@ -3473,7 +3620,8 @@ def main() -> int:
                      + lanes["launches"]["csr_to_dense"]
                      + dp["launches"]["csr_to_dense"]
                      + job["launches"]["csr_to_dense"]
-                     + lm["launches"]["csr_to_dense"]),
+                     + lm["launches"]["csr_to_dense"]
+                     + bench["launches"]["csr_to_dense"]),
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3,

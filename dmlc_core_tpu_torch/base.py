@@ -13,8 +13,6 @@ import os
 import subprocess
 from typing import Callable, List, Optional, Sequence
 
-import torch
-
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(PACKAGE_DIR)
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
@@ -28,6 +26,9 @@ def resolve_device(device: "str | torch.device | None") -> torch.device:
     """The device an entry point runs on: ``device`` when given, else
     ``cuda``. Without CUDA and without an explicit device this raises —
     the port never falls back to the CPU on its own."""
+    # imported here: processes that use only the native core (the bench's
+    # parse clients and origins) start without torch
+    import torch
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():

@@ -10,7 +10,8 @@ ids, its pipeline knobs and counters, and the shard cache), the fused padded-bat
 binary lanes' batch fills (:class:`NativeCsrRecBatcher` for ``.crec``,
 :class:`NativeDenseRecBatcher` for ``.drec``), RecordIO framing
 (:class:`NativeRecordIOWriter`, :class:`NativeRecordIOReader`), the
-float32 -> bfloat16 conversion of the fills (:func:`bf16_bits`),
+float32 -> bfloat16 conversion of the fills and its exact inverse
+(:func:`bf16_bits`, :func:`bf16_convert`, :func:`bf16_upcast`),
 URI-dispatched byte streams
 (:class:`NativeStream`, :func:`path_info`, :func:`list_directory`),
 record-aligned partitioned reads (:class:`NativeInputSplit`, and
@@ -46,7 +47,8 @@ from dmlc_core_tpu_torch.base import (BUILD_DIR, REPO_ROOT, DMLCError,
 __all__ = ["lib", "build", "LIB_PATH", "NativeParser", "NativeBatcher",
            "NativeCsrRecBatcher", "NativeDenseRecBatcher",
            "NativeRecordIOWriter", "NativeRecordIOReader", "NativeStream",
-           "RowBlock", "BF16_STORAGE", "bf16_bits", "path_info",
+           "RowBlock", "BF16_STORAGE", "bf16_bits", "bf16_convert",
+           "bf16_upcast", "path_info",
            "set_fs_fault_plan", "native_telemetry_snapshot",
            "native_trace_snapshot", "io_retry_stats",
            "reset_io_retry_stats", "NativeInputSplit", "LeasedSplit",
@@ -207,6 +209,9 @@ def _declare_signatures(cdll: ctypes.CDLL) -> None:
                                       c.POINTER(c.c_uint64),
                                       c.POINTER(c.c_uint64), c.POINTER(i),
                                       c.POINTER(i), c.POINTER(i)]),
+        "dct_batcher_fill_csr": (i, [vp, vp, vp, vp, vp, vp, vp, vp, vp]),
+        "dct_batcher_fill_dense": (i, [vp, vp, c.c_int32, c.c_uint64, vp,
+                                       vp, vp, vp]),
         "dct_batcher_fill_packed": (i, [vp, vp, c.c_int32, vp, c.c_int32,
                                         vp, c.c_int32, vp]),
         "dct_batcher_fill_dense_packed": (i, [vp, vp, c.c_int32,
@@ -228,6 +233,8 @@ def _declare_signatures(cdll: ctypes.CDLL) -> None:
         "dct_denserec_meta": (i, [vp, c.POINTER(c.c_uint64),
                                   c.POINTER(c.c_int32),
                                   c.POINTER(c.c_int32)]),
+        "dct_denserec_fill": (i, [vp, vp, c.c_int32, c.c_uint64, vp, vp,
+                                  vp, c.POINTER(c.c_uint64)]),
         "dct_denserec_fill_packed": (i, [vp, vp, c.c_int32, c.c_uint64, vp,
                                          c.c_int32, vp,
                                          c.POINTER(c.c_uint64)]),
@@ -240,6 +247,8 @@ def _declare_signatures(cdll: ctypes.CDLL) -> None:
         "dct_csrrec_meta": (i, [vp, c.POINTER(c.c_uint64),
                                 c.POINTER(c.c_int32), c.POINTER(c.c_int32),
                                 c.POINTER(c.c_int32)]),
+        "dct_csrrec_fill": (i, [vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                c.POINTER(c.c_uint64)]),
         "dct_csrrec_fill_packed": (i, [vp, vp, c.c_int32, vp, c.c_int32,
                                        vp, c.POINTER(c.c_uint64)]),
         "dct_csrrec_before_first": (i, [vp]),
@@ -247,6 +256,7 @@ def _declare_signatures(cdll: ctypes.CDLL) -> None:
         "dct_csrrec_bytes_read": (i, [vp, c.POINTER(sz)]),
         "dct_csrrec_free": (i, [vp]),
         "dct_bf16_convert": (i, [vp, vp, c.c_uint64]),
+        "dct_bf16_upcast": (i, [vp, vp, c.c_uint64]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(cdll, name)
@@ -480,8 +490,10 @@ class NativeBatcher:
     """Static-shape padded-batch assembly in C++ (cpp/src/batcher.h).
 
     next_meta() stages a batch and reports its shape; the caller allocates
-    buffers of exactly that shape and fill_packed()/fill_dense_packed()
-    write them in one native pass with the GIL released."""
+    buffers of exactly that shape and one fill writes them in one native
+    pass with the GIL released: fill_packed()/fill_dense_packed() into
+    the shard-major transfer packs the device lane ships,
+    fill_csr()/fill_dense() into separate planes."""
 
     def __init__(self, uri: str, part: int = 0, npart: int = 1,
                  fmt: str = "auto", nthread: int = 0, threaded: bool = True,
@@ -548,21 +560,51 @@ class NativeBatcher:
         """Fused dense fill (batcher.h FillDensePacked): ``x`` is
         [rows, F] float32, or uint16 holding bf16 bits; label/weight/[qid]/
         nrows go into the shard-major aux pack."""
-        if x.dtype == np.float32:
-            x_dtype = 0
-        elif x.dtype == BF16_STORAGE:
-            x_dtype = 1
-        else:
-            raise DMLCError(f"dense fill dtype must be float32 or bf16 "
-                            f"bits (uint16), got {x.dtype}")
         F = x.shape[-1]
         D = self._num_shards
         R = self._batch_rows // D
         ka = aux.shape[1]
         _check(lib().dct_batcher_fill_dense_packed(
-            self._h, self._ptr(x, x.dtype, self._batch_rows * F), x_dtype,
-            F, self._ptr(aux, np.int32, D * ka * R), ka,
+            self._h, self._ptr(x, x.dtype, self._batch_rows * F),
+            _x_dtype_code(x), F, self._ptr(aux, np.int32, D * ka * R), ka,
             self._ptr(nrows, np.int32, D)))
+
+    def fill_csr(self, row: np.ndarray, col: np.ndarray, val: np.ndarray,
+                 label: np.ndarray, weight: np.ndarray, nrows: np.ndarray,
+                 qid: Optional[np.ndarray] = None,
+                 field: Optional[np.ndarray] = None) -> None:
+        """Write the staged batch into separate CSR planes (batcher.h
+        FillCSR): ``row``/``col``/``val`` [D, bucket] int32/int32/float32,
+        ``label``/``weight`` [rows] float32, ``nrows`` [D] int32, and the
+        optional ``qid`` [rows] / ``field`` [D, bucket] int32, with the GIL
+        released."""
+        nz = self._num_shards * self._bucket
+        _check(lib().dct_batcher_fill_csr(
+            self._h, self._ptr(row, np.int32, nz),
+            self._ptr(col, np.int32, nz), self._ptr(val, np.float32, nz),
+            self._ptr(label, np.float32, self._batch_rows),
+            self._ptr(weight, np.float32, self._batch_rows),
+            self._ptr(nrows, np.int32, self._num_shards),
+            None if qid is None
+            else self._ptr(qid, np.int32, self._batch_rows),
+            None if field is None else self._ptr(field, np.int32, nz)))
+
+    def fill_dense(self, x: np.ndarray, label: np.ndarray,
+                   weight: np.ndarray, nrows: np.ndarray,
+                   qid: Optional[np.ndarray] = None) -> None:
+        """Write the staged batch into a dense [rows, F] buffer (float32, or
+        uint16 holding bf16 bits; batcher.h FillDense) and separate
+        ``label``/``weight`` [rows], ``nrows`` [D] and optional ``qid``
+        [rows] planes, with the GIL released."""
+        F = x.shape[-1]
+        _check(lib().dct_batcher_fill_dense(
+            self._h, self._ptr(x, x.dtype, self._batch_rows * F),
+            _x_dtype_code(x), F,
+            self._ptr(label, np.float32, self._batch_rows),
+            self._ptr(weight, np.float32, self._batch_rows),
+            self._ptr(nrows, np.int32, self._num_shards),
+            None if qid is None
+            else self._ptr(qid, np.int32, self._batch_rows)))
 
     def before_first(self) -> None:
         """Restart batching from the first row."""
@@ -659,6 +701,29 @@ class NativeCsrRecBatcher(_Handle):
         self._bucket = bucket.value
         return bucket.value, bool(hw.value), bool(hq.value), bool(hf.value)
 
+    def fill(self, row: np.ndarray, col: np.ndarray, val: np.ndarray,
+             label: np.ndarray, weight: np.ndarray, nrows: np.ndarray,
+             qid: Optional[np.ndarray] = None,
+             field: Optional[np.ndarray] = None) -> int:
+        """Fill one batch into separate planes (csr_rec.h Fill): ``row``/
+        ``col``/``val`` [D, bucket], ``label``/``weight`` [rows], ``nrows``
+        [D] and the optional ``qid`` / ``field``. Returns the true row
+        count (0 = end)."""
+        if self._bucket == 0:
+            self.meta()  # plane sizing needs the static bucket
+        nz = self._num_shards * self._bucket
+        take = ctypes.c_uint64()
+        ptr = NativeBatcher._ptr
+        _check(lib().dct_csrrec_fill(
+            self._h, ptr(row, np.int32, nz), ptr(col, np.int32, nz),
+            ptr(val, np.float32, nz),
+            None if field is None else ptr(field, np.int32, nz),
+            ptr(label, np.float32, self._batch_rows),
+            ptr(weight, np.float32, self._batch_rows),
+            None if qid is None else ptr(qid, np.int32, self._batch_rows),
+            ptr(nrows, np.int32, self._num_shards), ctypes.byref(take)))
+        return int(take.value)
+
     def fill_packed(self, big: np.ndarray, aux: np.ndarray,
                     nrows: np.ndarray) -> int:
         """Fused shard-major fill (csr_rec.h FillPacked): ``big`` is
@@ -729,13 +794,6 @@ class NativeDenseRecBatcher(_Handle):
         [rows, F] float32 or uint16 bf16 bits (the file's values converted
         to it); label/weight/nrows go into ``aux`` [D, 3, R] int32.
         Returns the true row count (0 = end)."""
-        if x.dtype == np.float32:
-            out_dtype = 0
-        elif x.dtype == BF16_STORAGE:
-            out_dtype = 1
-        else:
-            raise DMLCError(f"dense fill dtype must be float32 or bf16 "
-                            f"bits (uint16), got {x.dtype}")
         F = x.shape[-1]
         D = self._num_shards
         R = self._batch_rows // D
@@ -743,9 +801,26 @@ class NativeDenseRecBatcher(_Handle):
         take = ctypes.c_uint64()
         ptr = NativeBatcher._ptr
         _check(lib().dct_denserec_fill_packed(
-            self._h, ptr(x, x.dtype, self._batch_rows * F), out_dtype, F,
-            ptr(aux, np.int32, D * ka * R), ka, ptr(nrows, np.int32, D),
+            self._h, ptr(x, x.dtype, self._batch_rows * F), _x_dtype_code(x),
+            F, ptr(aux, np.int32, D * ka * R), ka, ptr(nrows, np.int32, D),
             ctypes.byref(take)))
+        return int(take.value)
+
+    def fill(self, x: np.ndarray, label: np.ndarray, weight: np.ndarray,
+             nrows: np.ndarray) -> int:
+        """Fill one batch into separate planes (dense_rec.h Fill): ``x``
+        [rows, F] float32 or uint16 bf16 bits (its dtype picks the
+        storage), ``label``/``weight`` [rows], ``nrows`` [D]. Returns the
+        true row count (0 = end)."""
+        F = x.shape[-1]
+        take = ctypes.c_uint64()
+        ptr = NativeBatcher._ptr
+        _check(lib().dct_denserec_fill(
+            self._h, ptr(x, x.dtype, self._batch_rows * F), _x_dtype_code(x),
+            F,  # checked natively against the file's feature width
+            ptr(label, np.float32, self._batch_rows),
+            ptr(weight, np.float32, self._batch_rows),
+            ptr(nrows, np.int32, self._num_shards), ctypes.byref(take)))
         return int(take.value)
 
     def before_first(self) -> None:
@@ -814,6 +889,36 @@ class NativeRecordIOReader(_Handle):
             yield rec
 
 
+def _x_dtype_code(x: np.ndarray) -> int:
+    """The native fills' dense storage code: 0 float32, 1 bf16 bits."""
+    if x.dtype == np.float32:
+        return 0
+    if x.dtype == BF16_STORAGE:
+        return 1
+    raise DMLCError(f"dense fill dtype must be float32 or bf16 bits "
+                    f"(uint16), got {x.dtype}")
+
+
+def bf16_convert(src: np.ndarray, dst: np.ndarray) -> None:
+    """Native float32 -> bfloat16 bulk conversion (cpp/src/bf16.h) into
+    ``dst``, a C-contiguous uint16 array of ``src.size`` bf16 bits: the
+    round-to-nearest-even the batch fills use (NaN stays NaN)."""
+    ptr = NativeBatcher._ptr
+    _check(lib().dct_bf16_convert(ptr(src, np.float32, src.size),
+                                  ptr(dst, BF16_STORAGE, src.size),
+                                  src.size))
+
+
+def bf16_upcast(src: np.ndarray, dst: np.ndarray) -> None:
+    """Native bfloat16 -> float32 bulk upcast (cpp/src/bf16.h) of the
+    uint16 bf16 bits ``src`` into float32 ``dst``: exact, the widening
+    ``tensor.view(torch.bfloat16).float()`` performs on the device."""
+    ptr = NativeBatcher._ptr
+    _check(lib().dct_bf16_upcast(ptr(src, BF16_STORAGE, src.size),
+                                 ptr(dst, np.float32, src.size),
+                                 src.size))
+
+
 def bf16_bits(src: np.ndarray) -> np.ndarray:
     """bfloat16 bits (uint16, same shape) of float32 ``src``, rounded to
     nearest even by the native core's conversion (cpp/src/bf16.h), the one
@@ -821,9 +926,7 @@ def bf16_bits(src: np.ndarray) -> np.ndarray:
     src = np.ascontiguousarray(src, np.float32)
     out = np.empty(src.shape, BF16_STORAGE)
     if src.size:
-        _check(lib().dct_bf16_convert(
-            ctypes.c_void_p(src.ctypes.data),
-            ctypes.c_void_p(out.ctypes.data), src.size))
+        bf16_convert(src, out)
     return out
 
 

@@ -513,3 +513,52 @@ def test_ring_attention_on_cuda_matches_dense(cuda_device):
         for a, b in zip(got, want):
             torch.testing.assert_close(a.grad, b.grad, rtol=2e-4,
                                        atol=2e-5)
+
+
+def test_bench_kernel_probe_launches_and_checks_the_kernel(cuda_device):
+    """The bench's kernel probe on the card: the kernel equals its plain
+    version (rtol/atol 1e-5) before any timing, one warm and 5 timed
+    launches, the library call beside it."""
+    from dmlc_core_tpu_torch.bench.kernel_probe import kernel_probe
+    before = hk.csr_to_dense_kernel.launches
+    out = kernel_probe(cuda_device)
+    assert out["launches"] == 6
+    assert hk.csr_to_dense_kernel.launches == before + 7  # and the check
+    assert out["max_abs_err"] <= 1e-5 and "check" in out
+    assert (out["rows"], out["features"], out["nnz"]) == (1024, 28, 28672)
+    assert 0 < out["kernel_ms"] <= out["kernel_ms_median"]
+    assert 0 < out["library_ms"] <= out["library_ms_median"]
+    assert out["speedup"] == pytest.approx(out["library_ms"]
+                                           / out["kernel_ms"])
+    assert out["bound_by"] == "bytes" and out["bound_ms"] < out["kernel_ms"]
+
+
+def test_bench_ingest_share_divides_by_the_copy_probe(cuda_device, tmp_path,
+                                                     monkeypatch):
+    """The headline on the card: every row lands and is read on the card,
+    and the bandwidth share is in (0, 1] with the pinned-copy probe, not
+    the lane's own best epoch, setting its denominator (a probe that reads
+    too low would hide behind the max()); the device lane counts every
+    row, and its replay's copy probe sets its share's denominator too."""
+    from dmlc_core_tpu_torch.bench import datasets, device_lane, ingest
+    monkeypatch.setattr(datasets, "CACHE_DIR", str(tmp_path))
+    rows = 40000
+    path = datasets.ensure_dataset(rows)
+    for fmt, lane_path in (("libsvm", path),
+                           ("recd", datasets.ensure_drec_dataset(rows))):
+        lane = ingest.run_lane(lane_path, rows, fmt, cuda_device,
+                               batch_rows=8192, threads=0,
+                               dense_dtype="bfloat16", reps=2)
+        assert lane["rows_per_sec"] > 0, fmt
+        assert 0 < lane["hbm_ingest_bw_util"] <= 1.0, (fmt, lane)
+        assert 0 < lane["hbm_ingest_bw_util_best"] <= 1.0, (fmt, lane)
+        best_epoch = (lane["device_bytes_per_sec"]
+                      * lane["spread_rows_per_sec"][1] / lane["rows_per_sec"])
+        assert lane["attainable_pytree_bytes_per_sec"] >= best_epoch, (
+            fmt, lane)
+    dl = device_lane.device_lane_probe(rows, cuda_device)
+    assert dl["rows"] == rows and dl["backend"] == "cuda"
+    assert 0 < dl["hbm_ingest_bw_util"] <= 1.0
+    assert dl["zero_copy_batches_total"] == 0  # every batch is a copy
+    # the best-epoch share divides by max(probe, best epoch)
+    assert 0 < dl["hbm_ingest_bw_util_best"] < 1.0

@@ -7,6 +7,8 @@ Entry points called without ``device=`` where CUDA is missing raise rather
 than run on the CPU, and ``chip_smoke.py`` exits non-zero there.
 """
 
+import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -38,9 +40,13 @@ import dmlc_core_tpu_torch
 names = ["dmlc_core_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(dmlc_core_tpu_torch.__path__,
                                           "dmlc_core_tpu_torch.")]
-# the fourth to eighth slices' modules by name, so none can drop out
+# the fourth to ninth slices' modules by name, so none can drop out
 # unnoticed
-for mod in ("ops.attention", "parallel.axis", "parallel.ring",
+for mod in ("bench", "bench.__main__", "bench.datasets", "bench.record",
+            "bench.host_lanes", "bench.ingest", "bench.kernel_probe",
+            "bench.device_lane", "bench.loadrig", "bench.serving_lane",
+            "bench.remote_lane", "bench.mesh_worker", "bench.mesh_lane",
+            "ops.attention", "parallel.axis", "parallel.ring",
             "parallel.pipeline_parallel", "models.transformer",
             "models.tp_transformer", "train_lm",
             "io.convert", "ops.ranking", "models.fm", "models.convert",
@@ -69,7 +75,7 @@ def test_port_imports_without_jax_or_reference():
         capture_output=True, text=True, timeout=300, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 57  # every module of the eight slices
+    assert n >= 71  # every module of the nine slices
 
 
 BLOCK = BLOCKED_IMPORT_PROBE.split("import dmlc_core_tpu_torch\n")[0]
@@ -122,6 +128,10 @@ def test_port_sources_name_no_blocked_package():
                 if path.endswith("chip_smoke.py") and \
                         words[:4] == ["from", "tests", "import", "mock_s3"]:
                     continue  # the loopback S3, checked below
+                if path.endswith(os.path.join("bench", "remote_lane.py")) \
+                        and words == ["from", "tests", "import",
+                                      "mock_origin"]:
+                    continue  # the origin child's mocks, checked below
                 top = words[1].split(".")[0]
                 assert top not in ("jax", "jaxlib", "ml_dtypes",
                                    "dmlc_core_tpu", "loadrig",
@@ -148,6 +158,48 @@ def test_chip_smokes_mock_s3_needs_no_blocked_package():
                           cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "SERVED" in proc.stdout
+
+
+def test_bench_origin_child_needs_no_blocked_package(tmp_path):
+    """The remote lane's origin child (``python -m
+    dmlc_core_tpu_torch.bench.remote_lane origin``) serves the checkout's
+    mock backends from ``tests/``: it and its pre-forked workers run with
+    JAX, ml_dtypes and the JAX package blocked, and the port's
+    ``fetch-client`` reads back the bytes it serves."""
+    data = tmp_path / "blob.bin"
+    data.write_bytes(np.random.default_rng(5).bytes(300_000))
+    child = BLOCK.replace('"scripts", "tests")', '"scripts")') + (
+        "import runpy\n"
+        "sys.argv = ['remote_lane'] + sys.argv[2:]\n"
+        "runpy.run_module('dmlc_core_tpu_torch.bench.remote_lane',"
+        " run_name='__main__')\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", child, REPO, "origin", "--backend", "s3",
+         "--corpus", f"bucket/blob.bin=@{data}", "--workers", "2",
+         "--ttl", "120"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=REPO)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("RIG_READY "), proc.stderr.read()[-3000:]
+        ready = json.loads(line.split(" ", 1)[1])
+        assert ready["backend"] == "s3" and len(ready["pids"]) == 2
+        fetch = subprocess.run(
+            [sys.executable, "-c", BLOCK + (
+                "import runpy\n"
+                "sys.argv = ['loadrig'] + sys.argv[2:]\n"
+                "runpy.run_module('dmlc_core_tpu_torch.bench.loadrig',"
+                " run_name='__main__')\n"), REPO, "fetch-client",
+             "--uri", ready["uri"].replace("{key}", "bucket/blob.bin")],
+            capture_output=True, text=True, timeout=120, cwd=REPO,
+            env=dict(os.environ, **ready["env"]))
+        assert fetch.returncode == 0, fetch.stderr[-3000:]
+        got = json.loads(fetch.stdout.strip().splitlines()[-1])
+        assert got["bytes"] == 300_000
+        assert got["sha256"] == hashlib.sha256(data.read_bytes()).hexdigest()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    assert proc.returncode == 0
 
 
 @pytest.fixture
