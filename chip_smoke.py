@@ -22,6 +22,16 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  its replay, equal bit for bit), a ``RowBlockContainer``
                  save/load round trip, host rows/s of each epoch and
                  ``pipeline_stats()``.
+   ``surface`` — the public surface in a fresh interpreter, as a user
+                 reaches it: ``import dmlc_core_tpu_torch`` loads neither
+                 torch nor numpy (its seconds); every package-level export
+                 of the top level, ``io``, ``ops``, ``utils`` and ``device``
+                 resolves; one 65,536 x 28 batch of the ``data`` file parsed
+                 through ``io``'s exports goes through
+                 ``ops.csr_to_dense(impl="pallas")``, equal to
+                 ``impl="xla"`` bit for bit with one launch (counted); a
+                 loopback ``RabitTracker`` logs ``tracker listening on`` in
+                 the reference's ``[HH:MM:SS] INFO`` format on stderr.
 3. ``kernels`` — every hand-written kernel against its plain PyTorch version
                  on the card: the bench probe shape, the training shape
                  (also with its nonzeros permuted), a real ``.crec`` batch
@@ -312,6 +322,122 @@ def host_us(fn, runs: int = 200) -> float:
         times.append((time.perf_counter() - t0) * 1e6)
     torch.cuda.synchronize()
     return statistics.median(times)
+
+
+# -- phase 2b: the public surface, standing alone ----------------------------
+SURFACE_TIMEOUT_S = 180
+SURFACE_TRACKER_LINE = re.compile(
+    r"^\[\d\d:\d\d:\d\d\] INFO tracker listening on 127\.0\.0\.1:\d+$", re.M)
+
+# Run in a fresh interpreter (this script has torch and numpy loaded):
+# argv = repo, the HIGGS-shaped libsvm file, the device, the batch's rows.
+# One JSON line on stdout; the tracker's log lines go to stderr through
+# the package handler.
+SURFACE_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+t0 = time.perf_counter()
+import dmlc_core_tpu_torch as dct
+out = {"import_s": time.perf_counter() - t0,
+       "torch_after_import": "torch" in sys.modules,
+       "numpy_after_import": "numpy" in sys.modules}
+import dmlc_core_tpu_torch.device as ddevice
+import dmlc_core_tpu_torch.io as dio
+import dmlc_core_tpu_torch.ops as dops
+import dmlc_core_tpu_torch.utils as dutils
+exports = {}
+for mod in (dct, dio, dops, dutils, ddevice):
+    names = getattr(mod, "__all__", None) or [
+        a for a in dir(mod) if not a.startswith("_")]
+    for name in names:
+        getattr(mod, name)
+    exports[mod.__name__] = len(names)
+out["exports"] = exports
+import numpy as np
+import torch
+from dmlc_core_tpu_torch.ops import hopper_kernels
+device, rows, features = sys.argv[3], int(sys.argv[4]), 28
+t0 = time.perf_counter()
+b = dio.NativeBatcher(sys.argv[2], fmt="libsvm", batch_rows=rows)
+try:
+    take, bucket, max_index = b.next_meta()[:3]
+    row = np.empty(bucket, np.int32)
+    col = np.empty(bucket, np.int32)
+    val = np.empty(bucket, np.float32)
+    label = np.empty(rows, np.float32)
+    weight = np.empty(rows, np.float32)
+    nrows = np.empty(1, np.int32)
+    b.fill_csr(row, col, val, label, weight, nrows)
+finally:
+    b.close()
+out.update(parse_s=time.perf_counter() - t0, rows=int(take),
+           bucket=int(bucket), max_index=int(max_index))
+r, c, v = (torch.from_numpy(a).to(device) for a in (row, col, val))
+before = hopper_kernels.csr_to_dense_kernel.launches
+got = dops.csr_to_dense(r, c, v, int(take), features, impl="pallas")
+launches = hopper_kernels.csr_to_dense_kernel.launches - before
+want = dops.csr_to_dense(r, c, v, int(take), features, impl="xla")
+if device == "cuda":
+    torch.cuda.synchronize()
+out.update(launches=launches, shape=list(got.shape),
+           device=got.device.type, equal=bool(torch.equal(got, want)),
+           finite=bool(torch.isfinite(got).all()),
+           max_abs_err=float((got - want).abs().max()))
+from dmlc_core_tpu_torch.tracker.rendezvous import RabitTracker
+t = RabitTracker("127.0.0.1", 1)
+t.start()
+t.stop()
+t.join(timeout=30)
+print(json.dumps(out), flush=True)
+"""
+
+
+def surface_phase(text_uri: str, device: str = "cuda",
+                  rows: int = BATCH_ROWS) -> dict:
+    """The package's public surface in a fresh interpreter, as a user
+    reaches it: ``import dmlc_core_tpu_torch`` loads neither torch nor
+    numpy; every package-level export of the top level, ``io``, ``ops``,
+    ``utils`` (its lazy checkpoint names too) and ``device`` resolves; one
+    ``rows`` x 28 batch of ``text_uri`` parsed through ``io``'s exports goes
+    through ``ops.csr_to_dense(impl="pallas")``, which equals
+    ``impl="xla"`` bit for bit (the ``kernels`` phase's tolerance at this
+    shape) with one kernel launch on the card; and a loopback
+    ``RabitTracker`` logs ``tracker listening on`` in the reference's
+    format on the child's stderr."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SURFACE_CHILD, repo, text_uri, device,
+         str(rows)],
+        capture_output=True, text=True, timeout=SURFACE_TIMEOUT_S, cwd=repo)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode == 0, "surface: the child failed",
+            rc=proc.returncode, stderr=proc.stderr[-3000:])
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(not res["torch_after_import"] and not res["numpy_after_import"],
+            "surface: import dmlc_core_tpu_torch loaded torch or numpy",
+            **res)
+    require(res["rows"] == rows and res["max_index"] < FEATURES,
+            "surface: the parsed batch's shape", **res)
+    require(res["shape"] == [rows, FEATURES]
+            and res["device"] == device and res["finite"],
+            "surface: csr_to_dense output shape, device or values", **res)
+    require(res["equal"], "surface: the kernel disagrees with its plain "
+            "version", **res)
+    require(res["launches"] == (1 if device == "cuda" else 0),
+            "surface: kernel launches through ops.csr_to_dense", **res)
+    tracker_lines = SURFACE_TRACKER_LINE.findall(proc.stderr)
+    require(len(tracker_lines) == 1, "surface: the tracker's INFO line in "
+            "the reference's format", stderr=proc.stderr[-3000:])
+    out = {"phase": "surface", "device": device, "seconds": seconds,
+           **{k: res[k] for k in ("import_s", "torch_after_import",
+                                  "numpy_after_import", "exports",
+                                  "parse_s", "rows", "bucket", "equal",
+                                  "max_abs_err")},
+           "tracker_line": tracker_lines[0],
+           "launches": {"csr_to_dense": res["launches"]}}
+    emit(out)
+    return out
 
 
 # -- phase 3: kernels against their plain versions --------------------------
@@ -3595,6 +3721,7 @@ def main() -> int:
             "rows", "bytes", "text_write_s", "crec_convert_s",
             "drec_convert_s")}, "rowblock_iter": rowblock_epochs(
                 data["text"], os.path.join(workdir, "cache"))})
+        surface = surface_phase(data["text"])
         cases = kernels_phase([crec_kernel_case(data["crec"])])
         run, params = train_phase(data["text"])
         tel = telemetry_phase(data["text"], run["losses"], workdir)
@@ -3621,7 +3748,8 @@ def main() -> int:
                      + dp["launches"]["csr_to_dense"]
                      + job["launches"]["csr_to_dense"]
                      + lm["launches"]["csr_to_dense"]
-                     + bench["launches"]["csr_to_dense"]),
+                     + bench["launches"]["csr_to_dense"]
+                     + surface["launches"]["csr_to_dense"]),
         "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3,

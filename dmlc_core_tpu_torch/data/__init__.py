@@ -29,7 +29,6 @@ As in the reference:
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 from typing import BinaryIO, Callable, Dict, Iterator, List, Optional
@@ -37,14 +36,12 @@ from typing import BinaryIO, Callable, Dict, Iterator, List, Optional
 import numpy as np
 
 from dmlc_core_tpu_torch import telemetry
-from dmlc_core_tpu_torch.base import DMLCError
+from dmlc_core_tpu_torch.base import DMLCError, log_info, log_warning
 from dmlc_core_tpu_torch.io.native import (NativeParser, RowBlock,
                                            io_retry_stats)
 from dmlc_core_tpu_torch.registry import Registry
 from dmlc_core_tpu_torch.serializer import BinaryReader, BinaryWriter
 from dmlc_core_tpu_torch.tracker.wire import env_int
-
-logger = logging.getLogger("dmlc_core_tpu_torch.data")
 
 __all__ = ["Row", "RowBlock", "RowBlockContainer", "Parser", "RowBlockIter",
            "ElasticRowBlockIter", "LocalLeases", "register_parser",
@@ -595,7 +592,7 @@ class RowBlockIter:
                 skips.inc()
                 self.last_error = str(e)
                 consecutive += 1
-                logger.warning(
+                log_warning(
                     "row-block pull failed (%d consecutive, %d skipped "
                     "total); on_error=skip: %s",
                     consecutive, self.skipped_batches, e)
@@ -618,7 +615,7 @@ class RowBlockIter:
                 nread = self._parser.bytes_read()
                 if nread >= next_log:
                     dt = max(time.time() - t0, 1e-9)
-                    logger.info("%.0f MB read, %.2f MB/sec",
+                    log_info("%.0f MB read, %.2f MB/sec",
                              nread / 1e6, nread / 1e6 / dt)
                     next_log += 10 << 20
             self._block = RowBlockContainer.from_blocks(blocks)
@@ -916,7 +913,7 @@ class ElasticRowBlockIter:
                     raise
                 self.skipped_shards += 1
                 self.last_error = str(e)
-                logger.warning(
+                log_warning(
                     "shard %d failed (%d skipped total); on_error=skip: %s",
                     shard, self.skipped_shards, e)
                 # consumed-with-errors: completing (not releasing) avoids

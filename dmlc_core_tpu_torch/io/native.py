@@ -105,6 +105,19 @@ class RowBlockC(ctypes.Structure):
     ]
 
 
+class IoRetryStatsC(ctypes.Structure):
+    """Mirror of dct_io_retry_stats_t in cpp/src/capi.cc."""
+    _fields_ = [
+        ("requests", ctypes.c_uint64),
+        ("retries", ctypes.c_uint64),
+        ("backoff_ms_total", ctypes.c_uint64),
+        ("timeouts", ctypes.c_uint64),
+        ("faults_injected", ctypes.c_uint64),
+        ("giveups", ctypes.c_uint64),
+        ("deadline_exhausted", ctypes.c_uint64),
+    ]
+
+
 class ParsePipelineStatsC(ctypes.Structure):
     """Mirror of dct_parse_pipeline_stats_t in cpp/src/capi.cc."""
     _fields_ = [
@@ -201,6 +214,7 @@ def _declare_signatures(cdll: ctypes.CDLL) -> None:
         "dct_parser_pipeline_stats": (i, [vp,
                                           c.POINTER(ParsePipelineStatsC),
                                           c.POINTER(i)]),
+        "dct_io_retry_stats": (i, [c.POINTER(IoRetryStatsC)]),
         "dct_io_stats_reset": (i, []),
         "dct_batcher_create": (i, [c.c_char_p, u, u, c.c_char_p, i, i,
                                    c.c_uint64, c.c_uint32, c.c_uint64,

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import contextlib
 import datetime
-import logging
 import os
 from typing import Any, List, Optional
 
@@ -42,15 +41,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dmlc_core_tpu_torch.base import DMLCError, resolve_device
+from dmlc_core_tpu_torch.base import DMLCError, log_info, resolve_device
 from dmlc_core_tpu_torch.tracker.wire import env_int, env_int_opt
 from dmlc_core_tpu_torch.utils.checkpoint import _leaves_with_keys, _rebuild
 
 __all__ = ["init_from_env", "allreduce", "allreduce_tree", "allgather_bytes",
            "barrier", "broadcast", "rank", "world_size", "allreduce_sum_",
            "shutdown", "CollectiveError", "collective_call"]
-
-logger = logging.getLogger("dmlc_core_tpu_torch.parallel")
 
 _OPS = ("sum", "max", "min", "mean")
 
@@ -124,9 +121,8 @@ def init_from_env(device=None, backend: Optional[str] = None) -> None:
     in an initialized world does nothing."""
     env = _world_env()
     if env is None:
-        logger.info("init_from_env: no launcher env found; single-process "
-                    "mode (export JAX_COORDINATOR_ADDRESS or "
-                    "DMLC_COORDINATOR_ADDRESS)")
+        log_info("init_from_env: no launcher env found; single-process mode "
+                 "(use cluster=tpu-pod or export DMLC_COORDINATOR_ADDRESS)")
         return
     if dist.is_initialized():
         return

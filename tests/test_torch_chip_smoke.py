@@ -56,6 +56,22 @@ def test_bound_at_training_shape(cases):
                        F)[0] == pytest.approx(ms)
 
 
+def test_surface_phase_rehearsal_on_cpu(tmp_path):
+    """The ``surface`` phase's child on the CPU: the top-level import
+    without torch or numpy, every package-level export, a batch through
+    ``io``'s exports and ``ops.csr_to_dense`` (the plain version on the
+    CPU, so no launch), and the tracker's line in the reference's
+    format."""
+    uri = str(tmp_path / "higgs_like.libsvm")
+    cs.write_higgs_like(uri, 4096)
+    out = cs.surface_phase(uri, device="cpu", rows=1024)
+    assert not out["torch_after_import"] and not out["numpy_after_import"]
+    assert out["rows"] == 1024 and out["equal"]
+    assert out["launches"] == {"csr_to_dense": 0}
+    assert out["exports"]["dmlc_core_tpu_torch.utils"] == 14
+    assert cs.SURFACE_TRACKER_LINE.match(out["tracker_line"])
+
+
 def test_serve_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
     """The serve phase end to end on the CPU at a small size: the trained
     model through the checkpoint bit for bit, the in-process server's

@@ -61,6 +61,13 @@ for mod in ("bench", "bench.__main__", "bench.datasets", "bench.record",
     assert "dmlc_core_tpu_torch." + mod in names, mod
 for name in names:
     importlib.import_module(name)
+# every package-level name, the lazy ones (utils' checkpoint names) too
+for name in names:
+    mod = sys.modules[name]
+    if hasattr(mod, "__path__"):
+        for attr in getattr(mod, "__all__", [
+                a for a in dir(mod) if not a.startswith("_")]):
+            getattr(mod, attr)
 import chip_smoke
 assert callable(chip_smoke.main)
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
@@ -79,6 +86,55 @@ def test_port_imports_without_jax_or_reference():
 
 
 BLOCK = BLOCKED_IMPORT_PROBE.split("import dmlc_core_tpu_torch\n")[0]
+
+IMPORT_COST_PROBE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+mod = __import__(sys.argv[2], fromlist=["_"])
+for attr in sys.argv[3:]:
+    getattr(mod, attr)
+print(json.dumps({"torch": "torch" in sys.modules,
+                  "numpy": "numpy" in sys.modules}))
+"""
+
+# (module, names read from it, torch loaded, numpy loaded): the tracker,
+# the bench's parse clients and origins start on these without paying
+# for torch (2-3 s a process) or, where marked, numpy
+IMPORT_COSTS = [
+    ("dmlc_core_tpu_torch", ["Parameter", "Registry", "check_eq", "get_env",
+                             "set_env", "DMLCError", "field", "ParamError",
+                             "check", "__version__"], False, False),
+    ("dmlc_core_tpu_torch.base", ["logger", "log_info", "check_ge"],
+     False, False),
+    ("dmlc_core_tpu_torch.tracker.rendezvous", ["RabitTracker"],
+     False, False),
+    ("dmlc_core_tpu_torch.tracker.submit", ["main"], False, False),
+    ("dmlc_core_tpu_torch.params", ["Parameter"], False, False),
+    ("dmlc_core_tpu_torch.registry", ["Registry"], False, False),
+    ("dmlc_core_tpu_torch.telemetry", ["counter"], False, False),
+    ("dmlc_core_tpu_torch.utils", ["Timer", "trace_span"], False, False),
+    ("dmlc_core_tpu_torch.io", ["NativeParser", "rows_to_recordio",
+                                "list_directory"], False, True),
+    ("dmlc_core_tpu_torch.io.native", ["NativeParser"], False, True),
+    ("dmlc_core_tpu_torch.io.convert", ["rows_to_recordio"], False, True),
+    ("dmlc_core_tpu_torch.data", ["RowBlockIter"], False, True),
+    ("dmlc_core_tpu_torch.utils", ["save_checkpoint"], True, True),
+    ("dmlc_core_tpu_torch.utils.checkpoint", ["save_checkpoint"],
+     True, True),
+]
+
+
+@pytest.mark.parametrize("module,attrs,torch_loaded,numpy_loaded",
+                         IMPORT_COSTS,
+                         ids=[f"{m}:{a[0]}" for m, a, _, _ in IMPORT_COSTS])
+def test_import_cost_is_pinned(module, attrs, torch_loaded, numpy_loaded):
+    proc = subprocess.run(
+        [sys.executable, "-c", IMPORT_COST_PROBE, REPO, module, *attrs],
+        capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (got["torch"], got["numpy"]) == (torch_loaded, numpy_loaded), got
+
 
 SUBMIT_WORKER = BLOCK + r"""
 import os

@@ -576,7 +576,14 @@ def test_request_chain_from_trace_and_exemplar(tmp_path):
             resp = conn.getresponse()
             assert resp.status == 200 and b"scores" in resp.read()
             assert resp.getheader("X-Request-Id") == "pin-b.1"
-            st, tbody = cli.request("GET", "/trace?request_id=pin-b.1")
+            # the batcher emits the chain's root just after it hands the
+            # reply to the front end, so the client can ask before it lands
+            deadline = time.monotonic() + 10.0
+            while True:
+                st, tbody = cli.request("GET", "/trace?request_id=pin-b.1")
+                if st == 200 or time.monotonic() > deadline:
+                    break
+                time.sleep(0.01)
             assert st == 200, tbody
             chain = json.loads(tbody)
             names = {s["name"] for s in chain["spans"]}
