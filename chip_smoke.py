@@ -92,6 +92,19 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  counted on this run alone) against the ``train`` run at
                  rtol 1e-5; bf16 CSR values against the CPU run at rtol
                  1e-5. Rows/s and ``device_stage_us`` per lane.
+   ``host``    — host batches: the ``train`` phase's text file and its
+                 ``.crec`` through ``DeviceRowBlockIter(to_device=False)``,
+                 one epoch each: numpy batches bit for bit the same lane's
+                 device batches' ``.cpu()``, none pinned, no device
+                 counter moved and ``torch.cuda.memory_allocated()``
+                 unchanged across the host epoch; 8 ``LinearLearner``
+                 steps with the dense margin (the kernel, launches counted
+                 on this run alone) on host ``.crec`` batches and
+                 ``predict``, against the same run on the device batches
+                 at rtol 1e-5; the bench's host-tree probe and replay
+                 first pass, now through ``to_device=False``, the same
+                 trees as the host batcher gives. Host-epoch rows/s of
+                 both lanes and the step median.
 7. ``fm``      — a Criteo-shaped factorization machine at full width
                  (39 libfm fields, 2^20 hashed features, k = 8): one epoch
                  of 4 x 65,536 rows after a warm-up step, its first 2
@@ -212,6 +225,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import gc
 import hashlib
 import http.client
 import io
@@ -1611,6 +1625,185 @@ def lanes_phase(data: dict, text_csr: dict, device: str = "cuda",
     return out
 
 
+# -- phase 6b: host batches (DeviceRowBlockIter(to_device=False)) ------------
+HOST_STEPS = 8
+# the copying path's counters and histograms, which a host batch never
+# reaches (device.stage and device.wait still move)
+HOST_DEVICE_COUNTERS = ("device_batches_total", "device_transfer_bytes_total",
+                        "device_zero_copy_batches_total")
+HOST_DEVICE_HISTOGRAMS = ("device_transfer_us", "device_put_submit_us",
+                          "device_put_block_us")
+
+
+def host_epoch(uri: str, device: str, batch_rows: int, **iter_kw) -> dict:
+    """One ``to_device=False`` epoch: the batches as handed out (kept, no
+    copy), rows/s, the device counters, and the card's allocated bytes
+    before and after."""
+    gc.collect()  # no earlier phase's tensor may be freed in the window
+    sync(torch.device(device))
+    mem0 = torch.cuda.memory_allocated() if device == "cuda" else 0
+    telemetry.reset()
+    t0 = time.perf_counter()
+    with device_iter.DeviceRowBlockIter(uri, batch_rows=batch_rows,
+                                        to_device=False, device=device,
+                                        **iter_kw) as it:
+        batches = list(it)
+    seconds = time.perf_counter() - t0
+    sync(torch.device(device))
+    mem1 = torch.cuda.memory_allocated() if device == "cuda" else 0
+    moved = {n: telemetry.counter(n).value for n in HOST_DEVICE_COUNTERS}
+    moved.update({n: telemetry.histogram(n).summary()["count"]
+                  for n in HOST_DEVICE_HISTOGRAMS})
+    rows = sum(b.total_rows for b in batches)
+    return {"batches": batches, "rows": rows, "seconds": seconds,
+            "rows_per_s": rows / seconds, "memory_allocated": [mem0, mem1],
+            "device_metrics": moved,
+            "stage_count": telemetry.histogram(
+                "device_stage_us").summary()["count"]}
+
+
+def host_lane(name: str, uri: str, device: str, batch_rows: int,
+              rows: int, **iter_kw) -> "tuple[dict, list, list]":
+    """A lane's host epoch against its device epoch: numpy leaves, bit
+    for bit the device batches' ``.cpu()``, no device counter and no
+    allocated byte of the card moved, none pinned. Returns the lane's
+    record, its host batches and its device batches."""
+    host = host_epoch(uri, device, batch_rows, **iter_kw)
+    t0 = time.perf_counter()
+    with device_iter.DeviceRowBlockIter(uri, batch_rows=batch_rows,
+                                        device=device, **iter_kw) as it:
+        dev = list(it)
+    sync(torch.device(device))
+    dev_s = time.perf_counter() - t0
+    batches = host["batches"]
+    require(host["rows"] == rows and len(batches) == len(dev),
+            f"{name}: host epoch rows", rows=host["rows"],
+            batches=len(batches), device_batches=len(dev))
+    require(all(v == 0 for v in host["device_metrics"].values())
+            and host["stage_count"] == len(batches),
+            f"{name}: a host epoch moved the device counters",
+            **host["device_metrics"], stage_count=host["stage_count"])
+    require(host["memory_allocated"][0] == host["memory_allocated"][1],
+            f"{name}: a host epoch allocated on the card",
+            memory_allocated=host["memory_allocated"])
+    leaves = [v for b in batches for v in b.tree().values()]
+    require(all(isinstance(v, np.ndarray) for v in leaves),
+            f"{name}: host batch leaves are not numpy")
+    if device == "cuda":
+        require(not any(torch.from_numpy(v).is_pinned() for v in leaves),
+                f"{name}: a host batch was staged in pinned memory")
+    for i, (h, d) in enumerate(zip(batches, dev)):
+        ht, dt = h.tree(), d.tree()
+        require(set(ht) == set(dt) and all(
+            torch.equal(torch.from_numpy(ht[k]), dt[k].cpu())
+            for k in ht), f"{name}: host batch {i} differs from the "
+            "device batch's .cpu()")
+    return ({"rows_per_s": host["rows_per_s"], "seconds": host["seconds"],
+             "device_rows_per_s": rows / dev_s,
+             "memory_allocated": host["memory_allocated"],
+             "batches": len(batches)}, batches, dev)
+
+
+def host_steps(learner, batches: list, steps: int) -> dict:
+    """``steps`` learner steps from zero parameters (each loss read
+    back), then ``predict`` on the last batch."""
+    params = learner.init()
+    losses, step_s = [], []
+    for b in batches[:steps]:
+        ts = time.perf_counter()
+        params, loss = learner.step(params, b)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - ts)
+    margin = learner.predict(params, batches[steps - 1])
+    return {"losses": losses, "w": params.w.cpu().numpy(),
+            "b": float(params.b), "step_s": step_s,
+            "predict": margin.cpu().numpy(), "w_device": params.w.device}
+
+
+def host_phase(data: dict, device: str = "cuda",
+               batch_rows: int = BATCH_ROWS) -> dict:
+    """Host batches (``to_device=False``) on the HIGGS-shaped files: one
+    epoch of the text lane and one of ``.crec`` against the same lanes'
+    device epochs; ``HOST_STEPS`` ``LinearLearner`` steps with the dense
+    margin (the kernel) on host ``.crec`` batches, then ``predict``,
+    against the same run on the device batches at rtol 1e-5 (launches
+    counted on the host run alone); the bench's host-tree probe and
+    replay first pass, which now iterate ``to_device=False``, against
+    the host batcher read directly as they read it before."""
+    from dmlc_core_tpu_torch.bench import device_lane, ingest
+    rows = data["rows"]
+    steps = min(HOST_STEPS, -(-rows // batch_rows))
+    out = {"phase": "host", "device": device, "rows": rows,
+           "batch_rows": batch_rows, "steps": steps,
+           "reduced": {"rows": [11_000_000, rows]}}
+    text, _, _ = host_lane("text", data["text"], device, batch_rows, rows,
+                           layout="csr")
+    crec, host_batches, dev_batches = host_lane(
+        "crec", data["crec"], device, batch_rows, rows)
+    out["lanes"] = {"text": text, "crec": crec}
+
+    os.environ["DCT_CSR_TO_DENSE"] = "pallas"
+    learner = LinearLearner(FEATURES, margin_path="dense", device=device)
+    on_device = host_steps(learner, dev_batches, steps)
+    del dev_batches
+    hk.reset_launch_counts()
+    on_host = host_steps(learner, host_batches, steps)
+    out["launches"] = {k: fn.launches for k, fn in hk.KERNELS.items()}
+    require(on_host["w_device"].type == device,
+            "host-batch steps left the parameters' device")
+    if device == "cuda":
+        require(out["launches"]["csr_to_dense"] == steps,
+                "kernel launches on host batches", steps=steps,
+                launches=out["launches"])
+    gaps = {"host_vs_device_batches": compare(
+        on_host, on_device, "host batches vs device batches")}
+    # predict's segment margin sums with atomics on the card: rtol 1e-5,
+    # and atol 1e-6 for margins near 0
+    gaps["predict_max_abs"] = float(np.max(
+        np.abs(on_host["predict"] - on_device["predict"])))
+    require(np.allclose(on_host["predict"], on_device["predict"],
+                        rtol=1e-5, atol=1e-6), "host-batch predict differs "
+            "from the device batch's", **gaps)
+    out.update(losses=on_host["losses"], step_s=on_host["step_s"],
+               step_s_median=statistics.median(on_host["step_s"]),
+               device_batch_step_s_median=statistics.median(
+                   on_device["step_s"]), gaps=gaps)
+
+    dev = torch.device(device)
+    probe = ingest.host_tree_of(data["text"], dev, fmt="libsvm",
+                                batch_rows=batch_rows)
+    hb = device_iter.NativeHostBatcher(data["text"], fmt="libsvm",
+                                       batch_rows=batch_rows)
+    try:
+        before = {k: np.array(v) for k, v in hb.next_batch().tree().items()}
+    finally:
+        hb.close()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as cdir:
+        first = device_lane.cache_first_pass(
+            f"{data['text']}#cachefile={cdir}/new", dev, batch_rows)
+        old = []
+        with device_iter.DeviceRowBlockIter(
+                f"{data['text']}#cachefile={cdir}/old", batch_rows=batch_rows,
+                layout="csr", device=device) as it:
+            while (b := it.batcher.next_batch()) is not None:
+                old.append({k: np.array(v) for k, v in b.tree().items()})
+
+    def same(a: dict, b: dict) -> bool:
+        return set(a) == set(b) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            for k in a)
+
+    require(same(probe, before), "the bench's host-tree probe changed")
+    require(len(first) == len(old) and all(
+        same(a, b) for a, b in zip(first, old)),
+        "the bench's replay first pass changed", batches=len(first),
+        before=len(old))
+    out["bench_trees"] = {"probe_leaves": sorted(probe),
+                          "replay_first_pass_batches": len(first)}
+    emit(out)
+    return out
+
+
 # -- phase 7: a Criteo-shaped factorization machine --------------------------
 # The Criteo Display Advertising Challenge schema (Kaggle, 2014): 13 integer
 # and 26 categorical fields, one nonzero each, written as libfm
@@ -2193,7 +2386,7 @@ def dp_worker(spec_path: str, out_path: str) -> int:
     distributed.init_from_env(device=spec["device"],
                               backend=spec["backend"])
     try:
-        mesh = data_mesh(spec["device"])
+        mesh = data_mesh(device=spec["device"])
         backend = torch.distributed.get_backend()
         out = {"rank": mesh.rank, "size": mesh.size, "backend": backend,
                "device": str(mesh.device)}
@@ -2661,7 +2854,7 @@ def job_mesh_worker(spec_path: str) -> int:
                               env_int("DMLC_TRACKER_PORT", 9091))
     assign = client.start(heartbeat=True)
     tracker_note(scratch)
-    mesh = data_mesh(spec["device"])
+    mesh = data_mesh(device=spec["device"])
     rank, size = mesh.rank, mesh.size
     hk.reset_launch_counts()
     lrn = LinearLearner(FEATURES, margin_path="dense", mesh=mesh)
@@ -3729,6 +3922,7 @@ def main() -> int:
         lanes = lanes_phase(data, {"losses": run["losses"],
                                    "w": params.w.cpu().numpy(),
                                    "b": float(params.b)})
+        host = host_phase(data)
         fm_phase(workdir, data)
         rank_phase(workdir, data)
         dp = dp_phase(workdir, data, run, params)
@@ -3745,6 +3939,7 @@ def main() -> int:
         "launches": (run["launches"]["csr_to_dense"]
                      + tel["launches"]["csr_to_dense"]
                      + lanes["launches"]["csr_to_dense"]
+                     + host["launches"]["csr_to_dense"]
                      + dp["launches"]["csr_to_dense"]
                      + job["launches"]["csr_to_dense"]
                      + lm["launches"]["csr_to_dense"]

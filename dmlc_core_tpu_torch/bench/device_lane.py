@@ -43,6 +43,19 @@ def _counter_total(snap: dict, name: str) -> int:
                if c["name"] == name)
 
 
+def cache_first_pass(curi: str, device: torch.device,
+                     batch_rows: int) -> list:
+    """The first pass over a ``#cachefile=`` URI, which parses the text
+    and tees the cache: its host batch trees (``to_device=False``, as
+    ``bench.py`` takes them), copied into the memory the iterator stages
+    in."""
+    with DeviceRowBlockIter(curi, batch_rows=batch_rows, layout="csr",
+                            to_device=False, prefetch=0,
+                            device=device) as it:
+        return [{k: pinned_like(v, device) for k, v in b.tree().items()}
+                for b in it]
+
+
 def replay_ingest(path: str, device: torch.device, batch_rows: int,
                   reps: int) -> dict:
     """The shard-cache replay's landed bytes/s against the copy of the
@@ -50,13 +63,7 @@ def replay_ingest(path: str, device: torch.device, batch_rows: int,
     cdir = tempfile.mkdtemp(prefix="dct_bench_zc_")
     curi = f"{path}#cachefile={cdir}"
     try:
-        host_trees = []
-        # the first pass parses the text and tees the cache
-        with DeviceRowBlockIter(curi, batch_rows=batch_rows, layout="csr",
-                                device=device) as hit:
-            while (b := hit.batcher.next_batch()) is not None:
-                host_trees.append({k: pinned_like(v, device)
-                                   for k, v in b.tree().items()})
+        host_trees = cache_first_pass(curi, device, batch_rows)
         probe_bytes = sum(int(v.nbytes) for t in host_trees
                           for v in t.values())
         copier = Copier(device)

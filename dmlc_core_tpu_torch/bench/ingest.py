@@ -117,9 +117,11 @@ def attainable_contiguous_bw(copier: Copier, nbytes: int) -> float:
 
 def host_tree_of(path: str, device: torch.device, **kw) -> dict:
     """The first batch of ``path`` as the iterator stages it on the host
-    (pinned for a CUDA device), before any copy."""
-    with DeviceRowBlockIter(path, device=device, **kw) as it:
-        batch = it.batcher.next_batch()
+    (``to_device=False``, as ``bench.py`` takes it), copied into pinned
+    memory for a CUDA device."""
+    with DeviceRowBlockIter(path, device=device, to_device=False,
+                            prefetch=0, **kw) as it:
+        batch = next(iter(it))
         return {k: pinned_like(v, device) for k, v in batch.tree().items()}
 
 

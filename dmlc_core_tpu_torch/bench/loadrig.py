@@ -1,17 +1,27 @@
-"""The client half of the reference's load rig (``scripts/loadrig.py``):
-an open-loop load generator, its closed-loop comparison mode, HTTP and
-generated-payload request functions, and the one-process-per-measurement
-clients.
+"""The port's counterpart of the reference's load rig
+(``scripts/loadrig.py``): an open-loop load generator, its closed-loop
+comparison mode, HTTP and generated-payload request functions, the
+one-process-per-measurement clients and the out-of-process origins.
 
+    python -m dmlc_core_tpu_torch.bench.loadrig origin --backend s3 \\
+        --corpus KEY=@PATH [--workers N] [--latency-ms MS] \\
+        [--reset-every N] [--get-500-every N] [--stall-every N] ...
     python -m dmlc_core_tpu_torch.bench.loadrig parse-client --uri URI \\
         [--fmt libsvm] [--nthread N] [--reps R]
     python -m dmlc_core_tpu_torch.bench.loadrig fetch-client --uri URI
+    python -m dmlc_core_tpu_torch.bench.loadrig loadgen --url URL \\
+        [--qps Q] [--duration-s S] [--workers W] [--closed-loop] \\
+        [--score-corpus SPEC | --body-file F] ...
 
-Each client parses (or reads) a URI in a fresh process, over the port's
-native core, and prints one JSON line: the timing, the process's own CPU
-seconds and the range scheduler's telemetry (``parse-client``), or the
-sha256 and length of the bytes (``fetch-client``). The origins they read
-from are :mod:`dmlc_core_tpu_torch.bench.remote_lane`'s.
+``origin`` serves a mock backend from pre-forked processes with the
+reference's shaping and fault knobs (:func:`remote_lane.run_origin`; it
+prints ``RIG_READY {json}``). Each client parses (or reads) a URI in a
+fresh process, over the port's native core, and prints one JSON line: the
+timing, the process's own CPU seconds and the range scheduler's telemetry
+(``parse-client``), or the sha256 and length of the bytes
+(``fetch-client``). ``loadgen`` drives HTTP load at ``--url``, open loop
+by default, and prints :func:`open_loop`'s (or :func:`closed_loop`'s)
+JSON.
 """
 
 from __future__ import annotations
@@ -344,9 +354,73 @@ def run_fetch_client(args) -> int:
     return 0
 
 
+def run_loadgen(args) -> int:
+    """Open- (default) or closed-loop HTTP load against ``--url``; prints
+    the result JSON. ``--score-corpus`` POSTs generated payloads,
+    ``--body-file`` a fixed body."""
+    if args.score_corpus:
+        payload_fn, ctype = score_payload_fn(args.score_corpus)
+        fn = http_request_fn(args.url, args.timeout_s, method="POST",
+                             headers={"Content-Type": ctype},
+                             payload_fn=payload_fn)
+    elif args.body_file:
+        with open(args.body_file, "rb") as f:
+            body = f.read()
+        fn = http_request_fn(
+            args.url, args.timeout_s, method=args.method, body=body,
+            headers={"Content-Type": args.content_type}
+            if args.content_type else None)
+    else:
+        fn = http_request_fn(args.url, args.timeout_s, method=args.method)
+    if args.closed_loop:
+        out = closed_loop(fn, args.workers, args.duration_s)
+    else:
+        out = open_loop(fn, args.qps, args.duration_s,
+                        max_inflight=args.workers,
+                        shed_after_ms=args.shed_after_ms)
+    print(json.dumps(out))
+    return 0
+
+
+def run_origin(args) -> int:
+    """The ``origin`` subcommand: :func:`remote_lane.run_origin`."""
+    from dmlc_core_tpu_torch.bench.remote_lane import run_origin as run
+    return run(args)
+
+
+def add_origin_args(o) -> None:
+    """The ``origin`` subcommand's flags, the reference rig's, with its
+    defaults (``bench.remote_lane``'s own ``origin`` takes the same)."""
+    o.add_argument("--backend", required=True,
+                   choices=("s3", "azure", "webhdfs", "http"))
+    o.add_argument("--corpus", action="append", default=[],
+                   help="key=@path or key=<size>:<seed>; repeatable")
+    o.add_argument("--port", type=int, default=0)
+    o.add_argument("--workers", type=int, default=2)
+    o.add_argument("--backlog", type=int, default=128)
+    o.add_argument("--latency-ms", type=int, default=0)
+    o.add_argument("--latency-block", type=int, default=256 * 1024)
+    o.add_argument("--stall-every", type=int, default=0)
+    o.add_argument("--stall-seconds", type=float, default=3.0)
+    o.add_argument("--reset-every", type=int, default=0)
+    o.add_argument("--get-500-every", type=int, default=0)
+    o.add_argument("--get-truncate-every", type=int, default=0)
+    o.add_argument("--slow-every", type=int, default=0)
+    o.add_argument("--slow-ms", type=int, default=0)
+    o.add_argument("--ignore-range", action="store_true")
+    o.add_argument("--bad-content-range-every", type=int, default=0)
+    o.add_argument("--ttl", type=float, default=600.0,
+                   help="exit after this many seconds: an orphaned origin "
+                        "never outlives its run")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
+    o = sub.add_parser("origin", help="serve a mock backend out of "
+                                      "process (pre-forked workers)")
+    add_origin_args(o)
+    o.set_defaults(fn=run_origin)
     pc = sub.add_parser("parse-client",
                         help="parse a URI in this fresh process; print "
                              "JSON timing + telemetry")
@@ -359,6 +433,25 @@ def main(argv=None) -> int:
                         help="raw-read a URI; print JSON sha256+bytes")
     fc.add_argument("--uri", required=True)
     fc.set_defaults(fn=run_fetch_client)
+    lg = sub.add_parser("loadgen", help="open/closed-loop HTTP load")
+    lg.add_argument("--url", required=True)
+    lg.add_argument("--qps", type=float, default=100.0)
+    lg.add_argument("--duration-s", type=float, default=5.0)
+    lg.add_argument("--workers", type=int, default=16)
+    lg.add_argument("--shed-after-ms", type=float, default=0.0)
+    lg.add_argument("--timeout-s", type=float, default=10.0)
+    lg.add_argument("--closed-loop", action="store_true")
+    lg.add_argument("--method", default="GET",
+                    help="HTTP method (POST needs --body-file or "
+                         "--score-corpus)")
+    lg.add_argument("--body-file", default="",
+                    help="fixed request body read from this file")
+    lg.add_argument("--content-type", default="",
+                    help="Content-Type for --body-file requests")
+    lg.add_argument("--score-corpus", default="",
+                    help="generate POST payloads from a corpus spec, "
+                         "e.g. libsvm:rows=4,features=64,nnz=8,seed=3")
+    lg.set_defaults(fn=run_loadgen)
     args = ap.parse_args(argv)
     return args.fn(args)
 

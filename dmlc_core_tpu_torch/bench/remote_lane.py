@@ -11,13 +11,17 @@ ranged rows/s, the origin's ceiling with no injected latency, the range
 scheduler's counters, and a CPU attribution of the ranged pass (client
 against origin seconds, from /proc).
 
-The origin child is this module run as a program:
+The origin child is this module run as a program (or ``python -m
+dmlc_core_tpu_torch.bench.loadrig origin``, the same flags):
 
     python -m dmlc_core_tpu_torch.bench.remote_lane origin --backend s3 \\
         --corpus KEY=@PATH [--workers N] [--latency-ms MS] ...
 
-It serves the checkout's own mock backends (``tests/mock_origin.py``),
-imported in the child only: the bench process never imports ``tests``.
+with the reference rig's shaping and fault knobs (``--stall-every``,
+``--reset-every``, ``--get-500-every``, ``--get-truncate-every``,
+``--slow-every``, ``--ignore-range``, ``--bad-content-range-every``, ...).
+It serves the checkout's own mock backends (``tests/mock_origin.py``);
+the bench process imports that module only for its ``OriginConfig``.
 When up it prints ``RIG_READY {"backend", "port", "pids", "env",
 "uri"}``: the client env and the URI template (``{key}``) a client needs.
 """
@@ -77,6 +81,12 @@ def run_origin(args) -> int:
     mock_origin = _mock_origin()
     config = mock_origin.OriginConfig(
         latency_ms=args.latency_ms, latency_block=args.latency_block,
+        stall_every=args.stall_every, stall_seconds=args.stall_seconds,
+        reset_every=args.reset_every, get_500_every=args.get_500_every,
+        get_truncate_every=args.get_truncate_every,
+        slow_every=args.slow_every, slow_ms=args.slow_ms,
+        ignore_range=args.ignore_range,
+        bad_content_range_every=args.bad_content_range_every,
         backlog=args.backlog, workers=args.workers)
     corpus = mock_origin.build_corpus(args.corpus)
     listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -189,17 +199,18 @@ class OriginProcess:
         return False
 
 
-def spawn_origin(backend: str, corpus_specs, workers: int = 2,
-                 latency_ms: int = 0, latency_block: int = 256 * 1024,
+def spawn_origin(backend: str, corpus_specs, config=None,
                  timeout_s: float = 30.0) -> OriginProcess:
     """Start the origin child and wait for its ``RIG_READY``.
-    ``corpus_specs``: ``key=@path`` / ``key=size:seed`` strings."""
+    ``corpus_specs``: ``key=@path`` / ``key=size:seed`` strings;
+    ``config``: a ``tests/mock_origin.py`` ``OriginConfig`` (default: its
+    defaults, one worker), whose knobs become the child's flags."""
+    config = config or _mock_origin().OriginConfig()
     cmd = [sys.executable, "-m", "dmlc_core_tpu_torch.bench.remote_lane",
-           "origin", "--backend", backend, "--workers", str(workers),
-           "--latency-ms", str(latency_ms),
-           "--latency-block", str(latency_block)]
+           "origin", "--backend", backend]
     for spec in corpus_specs:
         cmd.extend(["--corpus", spec])
+    cmd.extend(config.cli_args())
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
                             cwd=REPO_ROOT)
     deadline = time.monotonic() + timeout_s
@@ -267,6 +278,7 @@ def remote_lane_probe(path: str, nthread: int, latency_ms: int = 20,
 
     ranged_env = {"DMLC_IO_RANGE": "1",
                   "DMLC_IO_RANGE_CONCURRENCY": str(concurrency)}
+    origin_config = _mock_origin().OriginConfig
     tmp = tempfile.NamedTemporaryFile(suffix=".libsvm", delete=False)
     try:
         tmp.write(blob)
@@ -274,11 +286,12 @@ def remote_lane_probe(path: str, nthread: int, latency_ms: int = 20,
         spec = [f"{key}=@{tmp.name}"]
         local_rps = max(local_pass(tmp.name) for _ in range(2))
         # the origin's own ceiling: ranged reads with no injected latency
-        with spawn_origin("s3", spec, workers=workers) as org:
+        with spawn_origin("s3", spec,
+                          origin_config(workers=workers)) as org:
             ceiling_rps = client_pass(org, ranged_env, 2)["rows_per_sec"]
-        with spawn_origin("s3", spec, workers=workers,
-                          latency_ms=latency_ms,
-                          latency_block=latency_block) as org:
+        with spawn_origin("s3", spec, origin_config(
+                workers=workers, latency_ms=latency_ms,
+                latency_block=latency_block)) as org:
             if sampler is not None:
                 sampler.watch("remote_origin", org.proc.pid, *org.pids)
             seq_rps = client_pass(org, {"DMLC_IO_RANGE": "0"},
@@ -345,22 +358,11 @@ def remote_lane_probe(path: str, nthread: int, latency_ms: int = 20,
 
 
 def main(argv: Optional[list] = None) -> int:
+    from dmlc_core_tpu_torch.bench.loadrig import add_origin_args
     ap = argparse.ArgumentParser(description="serve a mock backend out of "
                                              "process (pre-forked workers)")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    o = sub.add_parser("origin")
-    o.add_argument("--backend", required=True,
-                   choices=("s3", "azure", "webhdfs", "http"))
-    o.add_argument("--corpus", action="append", default=[],
-                   help="key=@path or key=<size>:<seed>; repeatable")
-    o.add_argument("--port", type=int, default=0)
-    o.add_argument("--workers", type=int, default=2)
-    o.add_argument("--backlog", type=int, default=128)
-    o.add_argument("--latency-ms", type=int, default=0)
-    o.add_argument("--latency-block", type=int, default=256 * 1024)
-    o.add_argument("--ttl", type=float, default=600.0,
-                   help="exit after this many seconds: an orphaned origin "
-                        "never outlives its run")
+    add_origin_args(sub.add_parser("origin"))
     return run_origin(ap.parse_args(argv))
 
 

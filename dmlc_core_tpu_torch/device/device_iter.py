@@ -41,7 +41,9 @@ and every device tensor gets ``record_stream`` for that stream, since the
 tensors were allocated on the side stream. On the CPU (``device="cpu"``)
 ``torch.from_numpy`` aliases the staging buffer instead of copying; that
 is counted in ``device_zero_copy_batches_total``, and such buffers are
-never recycled, because the consumer's tensors still read them.
+never recycled, because the consumer's tensors still read them. With
+``to_device=False`` the iterator hands over the host batches themselves,
+unpinned and never recycled, as the reference's ``to_device=False`` does.
 
 :func:`torch_profiler_capture` is the counterpart of the reference's
 ``jax_profiler_capture``: under ``DMLC_TORCH_PROFILE=<dir>`` it records
@@ -81,7 +83,7 @@ from dmlc_core_tpu_torch.tracker.wire import TrackerAbortedError, env_int
 __all__ = ["PaddedBatch", "DenseBatch", "DeviceRowBlockIter", "HostBatcher",
            "NativeHostBatcher", "CsrRecHostBatcher", "DenseRecHostBatcher",
            "ElasticDeviceRowBlockIter", "unpack_tree", "unpack_shard",
-           "torch_profiler_capture"]
+           "to_device_batch", "torch_profiler_capture"]
 
 _lane_metrics = None
 
@@ -376,6 +378,31 @@ def unpack_shard(tree: Dict[str, Any]) -> Dict[str, Any]:
     return _unpack(tree, lambda a, i: a[i], lambda plane: plane[0])
 
 
+def _device_batch(host, out: Dict[str, torch.Tensor]):
+    """The device batch of ``host`` from its leaves ``out`` (tensors of
+    ``host.tree()``): bf16 bits (uint16 on the host) viewed as
+    ``torch.bfloat16``, and a packed batch's separate bf16 value leaf
+    riding as ``val16``."""
+    if isinstance(host, DenseBatch) and host.x.dtype == BF16_STORAGE:
+        out["x"] = out["x"].view(torch.bfloat16)
+    if "val" in out and "big" in out:
+        out["val16"] = out.pop("val").view(torch.bfloat16)
+    return type(host)(total_rows=host.total_rows, **out)
+
+
+def to_device_batch(batch, device):
+    """A host batch (numpy leaves, as ``to_device=False`` hands them over)
+    as the batch the iterator would have put on ``device``: every leaf
+    copied there (aliased on the CPU), the bf16 planes as the copying
+    path carries them. A batch of tensors is returned as it is."""
+    tree = batch.tree()
+    if not any(isinstance(v, np.ndarray) for v in tree.values()):
+        return batch
+    device = torch.device(device)
+    return _device_batch(batch, {k: torch.from_numpy(v).to(device)
+                                 for k, v in tree.items()})
+
+
 def _next_pow2(n: int, floor: int) -> int:
     b = floor
     while b < n:
@@ -428,8 +455,12 @@ class HostBatcher:
 
     def __init__(self, parser: NativeParser, batch_rows: int,
                  num_shards: int, min_nnz_bucket: int = 4096,
-                 layout: str = "auto", dense_max_features: int = 512,
-                 dense_dtype=np.float32, pin: bool = False):
+                 index64: bool = False, layout: str = "auto",
+                 dense_max_features: int = 512, dense_dtype=np.float32,
+                 pin: bool = False):
+        # index64 is the reference's keyword, accepted and never read
+        # there too: the parser's width decides the ids' width
+        del index64
         _check_shards(batch_rows, num_shards)
         if layout not in ("auto", "csr", "dense"):
             raise DMLCError(f"unknown layout {layout!r}")
@@ -967,7 +998,15 @@ class DeviceRowBlockIter:
     With ``mesh=`` (a ``DataMesh``), ``batch_rows`` is the global batch:
     this rank builds batches of ``batch_rows / mesh.size`` rows from its
     ``part`` of ``npart`` (which must divide), on the mesh's device unless
-    ``device`` names another."""
+    ``device`` names another.
+
+    ``to_device=False`` hands over the host batches themselves (numpy
+    leaves, as the reference's ``to_device=False`` does): no copy, no
+    stream, no pinned staging, and no device counter or ``device.put``
+    span moves. A handed-out batch is never recycled, so it stays valid
+    after the iterator moves on. ``device`` is still resolved (and still
+    raises without CUDA unless it is ``"cpu"``); the learners copy such
+    batches to their parameters' device (:func:`to_device_batch`)."""
 
     _SHUTDOWN = object()
 
@@ -975,10 +1014,12 @@ class DeviceRowBlockIter:
                  fmt: str = "auto", batch_rows: int = 65536,
                  mesh=None, min_nnz_bucket: int = 4096,
                  index64: bool = False, nthread: int = 0,
-                 prefetch: int = 2, layout: str = "auto",
-                 dense_max_features: int = 512, dense_dtype=np.float32,
-                 csr_val_dtype: str = "f32", device=None):
+                 prefetch: int = 2, to_device: bool = True,
+                 layout: str = "auto", dense_max_features: int = 512,
+                 dense_dtype=np.float32, csr_val_dtype: str = "f32",
+                 device=None):
         check_mesh(mesh)
+        self.to_device = to_device
         num_shards = local_device_count(mesh)
         self.device = (mesh.device if device is None and mesh is not None
                        else resolve_device(device))
@@ -1007,7 +1048,9 @@ class DeviceRowBlockIter:
         # the suffix rule, so fmt="auto" and the explicit format agree
         self._identity = {"uri": uri, "part": part, "npart": npart,
                           "fmt": fmt, "batch_rows": batch_rows}
-        pin = self.device.type == "cuda"
+        # host batches handed out are never recycled: pinning each would
+        # cost a fresh page-locked allocation a batch
+        pin = to_device and self.device.type == "cuda"
         if fmt == "recd":
             self.batcher = DenseRecHostBatcher(
                 uri, part=part, npart=npart, batch_rows=local_rows,
@@ -1021,8 +1064,8 @@ class DeviceRowBlockIter:
             self.batcher = HostBatcher(
                 NativeParser(uri, part=part, npart=npart, fmt=fmt,
                              nthread=nthread, index64=True),
-                local_rows, num_shards, min_nnz_bucket, layout=layout,
-                dense_max_features=dense_max_features,
+                local_rows, num_shards, min_nnz_bucket, index64,
+                layout=layout, dense_max_features=dense_max_features,
                 dense_dtype=dense_dtype, pin=pin)
         else:
             self.batcher = NativeHostBatcher(
@@ -1032,8 +1075,7 @@ class DeviceRowBlockIter:
                 dense_max_features=dense_max_features,
                 dense_dtype=dense_dtype, csr_val_dtype=csr_val_dtype,
                 pin=pin)
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        self._stream = (torch.cuda.Stream(self.device) if pin else None)
         self._prefetch = prefetch
         self._host_q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
@@ -1151,7 +1193,11 @@ class DeviceRowBlockIter:
         """Copy one host batch to the device. Returns (device batch, copy
         event or None). Waits for the copy before returning — as the
         reference blocks on its transfer — so the staging buffers go back
-        to the pool here, after the copy's event has completed."""
+        to the pool here, after the copy's event has completed. With
+        ``to_device=False`` returns ``(host, None)`` before any copy,
+        counter or span, and the batch is never recycled."""
+        if not self.to_device:
+            return host, None
         m = _get_lane_metrics()
         tree = host.tree()
         nbytes = sum(int(v.nbytes) for v in tree.values())
@@ -1182,16 +1228,13 @@ class DeviceRowBlockIter:
             m["zc_batches"].inc()
         else:
             self.batcher.recycle(host)
-        if isinstance(host, DenseBatch) and host.x.dtype == BF16_STORAGE:
-            out["x"] = out["x"].view(torch.bfloat16)
-        if "val" in out:  # the separate bf16 value leaf rides val16
-            out["val16"] = out.pop("val").view(torch.bfloat16)
-        return type(host)(total_rows=host.total_rows, **out), ev
+        return _device_batch(host, out), ev
 
     def _hand_over(self, item):
         """Make a transferred batch safe to use on the consumer's current
         stream: wait for the copy, and tell the allocator that the side-
-        stream tensors are in use there."""
+        stream tensors are in use there. A batch without a copy event (the
+        CPU's, or a ``to_device=False`` host batch) passes as it is."""
         batch, ev = item
         if ev is not None:
             consumer = torch.cuda.current_stream(self.device)
@@ -1376,7 +1419,8 @@ class ElasticDeviceRowBlockIter:
     :meth:`abort_drain` may be called from another thread, so it fits a
     :class:`~dmlc_core_tpu_torch.parallel.elastic.StepWatchdog` drain
     list. ``device_kwargs`` go to each shard's :class:`DeviceRowBlockIter`
-    (``batch_rows``, ``device``, ...)."""
+    (``batch_rows``, ``device``, ``to_device``, ...): with
+    ``to_device=False`` the pairs carry host batches."""
 
     def __init__(self, uri: str, num_shards: Optional[int] = None,
                  monitor=None, epoch: int = 0,

@@ -35,27 +35,41 @@ __all__ = ["DataMesh", "data_mesh", "check_mesh", "process_part",
 class DataMesh:
     """A 1-D data-parallel mesh, one device per process: the process group
     (None outside a ``torch.distributed`` world), this rank, the number of
-    ranks, and this rank's device."""
+    ranks, this rank's device and the axis's name."""
 
     group: Optional[Any]
     rank: int
     size: int
     device: torch.device
+    axis_name: str = "data"
 
 
-def data_mesh(device=None) -> DataMesh:
+def data_mesh(num_devices: Optional[int] = None, axis_name: str = "data",
+              device=None) -> DataMesh:
     """The mesh over every rank of the initialized world (a world of one
-    outside one). ``device`` defaults to ``cuda`` — the card
-    ``init_from_env`` made current — and raises without CUDA; pass
-    ``device="cpu"`` for the CPU."""
+    outside one), with the reference's parameters in its places.
+    ``num_devices`` counts the mesh's devices, one a rank: None, or the
+    world's size, since a mesh over part of the world is not one device
+    per rank (DMLCError). ``axis_name`` names the mesh's one axis.
+    ``device`` defaults to ``cuda`` — the card ``init_from_env`` made
+    current — and raises without CUDA; pass ``device="cpu"`` for the
+    CPU."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
+    world = dist.is_available() and dist.is_initialized()
+    size = dist.get_world_size() if world else 1
+    if num_devices is not None and num_devices != size:
+        raise DMLCError(
+            f"data_mesh(num_devices={num_devices!r}): the port's mesh is one "
+            f"device per rank, so it spans the whole world of {size} "
+            f"rank(s); pass num_devices=None or {size}")
+    if world:
         return DataMesh(group=dist.group.WORLD, rank=dist.get_rank(),
-                        size=dist.get_world_size(), device=dev)
-    return DataMesh(group=None, rank=0, size=1, device=dev)
+                        size=size, device=dev, axis_name=axis_name)
+    return DataMesh(group=None, rank=0, size=1, device=dev,
+                    axis_name=axis_name)
 
 
 def check_mesh(mesh) -> None:
@@ -67,8 +81,10 @@ def check_mesh(mesh) -> None:
             f"{type(mesh).__name__}")
 
 
-def process_part() -> Tuple[int, int]:
+def process_part(num_parts_per_process: int = 1) -> Tuple[int, int]:
     """(part_index, num_parts) for this process's InputSplit.
+    ``num_parts_per_process`` is the reference's keyword, accepted and
+    never read there either.
 
     Resolved in the reference's order: an initialized ``torch.distributed``
     world (its rank and size, the counterpart of the JAX process id and
@@ -76,6 +92,7 @@ def process_part() -> Tuple[int, int]:
     the MPI and slurm rank variables (the slurm count is the step-scoped
     ``SLURM_STEP_NUM_TASKS``); else (0, 1). A fully exported pair with a
     rank outside its count raises instead of mis-sharding."""
+    del num_parts_per_process
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized() and \
             dist.get_world_size() > 1:

@@ -14,6 +14,11 @@ sum, so a world steps exactly as one process on the union of its shards
 does: the reference's mesh branch, which steps with D times the learning
 rate on a mesh of D devices, is not copied (ROADMAP.md section 3).
 
+A batch with numpy leaves (``to_device=False``) is first copied to the
+parameters' device (:func:`device_iter.to_device_batch`), as JAX places
+numpy leaves on its own; the math never runs on the host for a model on
+the card.
+
 A rank whose part has no batch left steps with ``batch=None``: it adds
 zeros (loss, weight, gradients) to the reduction, so the ranks issue the
 same collectives and the global mean stays the mean over real rows. When
@@ -31,7 +36,8 @@ from typing import Tuple
 
 import torch
 
-from dmlc_core_tpu_torch.device.device_iter import unpack_shard
+from dmlc_core_tpu_torch.device.device_iter import (to_device_batch,
+                                                    unpack_shard)
 from dmlc_core_tpu_torch.device.sharding import local_device_count
 from dmlc_core_tpu_torch.parallel.distributed import allreduce_sum_
 
@@ -55,7 +61,7 @@ class DataParallelModel:
 
     def _local(self, params, batch):
         """(loss_sum, weight_sum, grads) of this rank's batch."""
-        tree = batch.tree()
+        tree = to_device_batch(batch, params[0].device).tree()
         D = (tree["aux"].shape[0] if "aux" in tree
              else tree["label"].shape[0])
         n_dev = local_device_count(self.mesh)
@@ -87,7 +93,8 @@ class DataParallelModel:
         return parts[0][0], parts[0][1], int(parts[0][2]), grads
 
     def step(self, params, batch):
-        """One training step on a device batch; returns (params, loss).
+        """One training step on a device or host batch; returns (params,
+        loss).
         With a mesh, ``batch=None`` is the zero-weight step of a rank
         whose part ran out."""
         cls = type(params)

@@ -20,7 +20,8 @@ from typing import NamedTuple
 import torch
 
 from dmlc_core_tpu_torch.base import resolve_device
-from dmlc_core_tpu_torch.device.device_iter import unpack_tree
+from dmlc_core_tpu_torch.device.device_iter import (to_device_batch,
+                                                    unpack_tree)
 from dmlc_core_tpu_torch.device.sharding import check_mesh
 from dmlc_core_tpu_torch.models._dp import DataParallelModel
 from dmlc_core_tpu_torch.models.linear import objective_loss
@@ -122,9 +123,10 @@ class FMLearner(DataParallelModel):
 
     @torch.no_grad()
     def predict(self, params: FMParams, batch) -> torch.Tensor:
-        """Margins [D, R] (apply sigmoid for probabilities)."""
+        """Margins [D, R] (apply sigmoid for probabilities) of a device
+        or host batch."""
         R = batch.rows_per_shard
-        tree = unpack_tree(batch.tree())
+        tree = unpack_tree(to_device_batch(batch, params.w.device).tree())
         if "x" in tree:
             return _fm_margin_dense(params, tree["x"])
         return torch.stack([

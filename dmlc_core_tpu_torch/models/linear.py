@@ -14,7 +14,8 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from dmlc_core_tpu_torch.base import resolve_device
-from dmlc_core_tpu_torch.device.device_iter import unpack_tree
+from dmlc_core_tpu_torch.device.device_iter import (to_device_batch,
+                                                    unpack_tree)
 from dmlc_core_tpu_torch.device.sharding import check_mesh
 from dmlc_core_tpu_torch.models._dp import DataParallelModel
 from dmlc_core_tpu_torch.ops.ranking import pairwise_logistic_loss
@@ -138,9 +139,10 @@ class LinearLearner(DataParallelModel):
 
     @torch.no_grad()
     def predict(self, params: LinearParams, batch) -> torch.Tensor:
-        """Margins [D, R] (apply sigmoid for probabilities)."""
+        """Margins [D, R] (apply sigmoid for probabilities) of a device
+        or host batch."""
         R = batch.rows_per_shard
-        tree = unpack_tree(batch.tree())
+        tree = unpack_tree(to_device_batch(batch, params.w.device).tree())
         if "x" in tree:
             return tree["x"].float() @ params.w + params.b
         return torch.stack([

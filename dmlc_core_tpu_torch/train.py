@@ -126,7 +126,8 @@ def main(argv=None) -> int:
 
 def _train(args, device) -> int:
     part, npart = process_part()
-    mesh = data_mesh(device) if torch.distributed.is_initialized() else None
+    mesh = (data_mesh(device=device) if torch.distributed.is_initialized()
+            else None)
     world = 1 if mesh is None else mesh.size
     if npart != world:
         raise DMLCError(

@@ -6,6 +6,8 @@ port's wrapper takes the plain version for CPU tensors, and every phase
 runs here end to end at a small size (rows cut, widths kept).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -222,6 +224,20 @@ def test_new_phases_rehearsal_on_cpu(tmp_path, one_thread):
     assert rank["losses"][0] == pytest.approx(np.log(2.0))
     assert rank["losses"][-1] < rank["losses"][0]
     assert set(rank["refusals"]) == {"oversized", "no_qid"}
+
+
+def test_host_phase_rehearsal_on_cpu(tmp_path, one_thread):
+    """The card's ``host`` phase on the CPU at a small size: both lanes'
+    host epochs against their device epochs, the learner on host
+    ``.crec`` batches against device batches, the bench's trees."""
+    data = cs.write_higgs_files(str(tmp_path), rows=4096)
+    host = cs.host_phase(data, device="cpu", batch_rows=1024)
+    assert set(host["lanes"]) == {"text", "crec"}
+    assert host["steps"] == 4 and len(host["losses"]) == 4
+    assert host["launches"] == {"csr_to_dense": 0}  # CPU: plain version
+    assert host["gaps"]["host_vs_device_batches"]["loss_max_rel"] == 0.0
+    assert host["bench_trees"]["replay_first_pass_batches"] == 4
+    assert os.environ["DCT_CSR_TO_DENSE"] == "pallas"
 
 
 def test_dp_union_files_follow_the_world_steps(tmp_path):

@@ -257,6 +257,43 @@ def test_cuda_trajectory_matches_cpu(cuda_device, tmp_path, monkeypatch,
     np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_host_batches_on_cuda(cuda_device, tmp_path, monkeypatch, prefetch):
+    """``to_device=False`` with the card as the device: unpinned numpy
+    batches, nothing allocated on the card; a learner on the card steps on
+    them through the kernel exactly as on the copied batches."""
+    path = write_libsvm(tmp_path / "h.libsvm", seed=13)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    with di.DeviceRowBlockIter(path, batch_rows=128, layout="csr",
+                               min_nnz_bucket=64, prefetch=prefetch,
+                               to_device=False, device="cuda") as it:
+        host = list(it)
+    assert torch.cuda.memory_allocated() == mem0
+    for b in host:
+        for v in b.tree().values():
+            assert isinstance(v, np.ndarray)
+            assert not torch.from_numpy(v).is_pinned()
+    want = batches(path, "csr", "float32", "cuda", prefetch=prefetch)
+    assert len(host) == len(want)
+    for h, w in zip(host, want):
+        for k, v in h.tree().items():
+            assert torch.equal(torch.from_numpy(v), w[k]), k
+    monkeypatch.setenv("DCT_CSR_TO_DENSE", "pallas")
+    learner = LinearLearner(9, margin_path="dense",
+                            device="cuda")
+    a = b = learner.init()
+    before = hk.csr_to_dense_kernel.launches
+    for h, w in zip(host, want):
+        a, la = learner.step(a, h)
+        b, lb = learner.step(b, di.PaddedBatch(
+            total_rows=h.total_rows,
+            **{k: v.to("cuda") for k, v in w.items()}))
+        assert float(la) == float(lb)
+    assert hk.csr_to_dense_kernel.launches - before == 2 * len(host)
+    assert torch.equal(a.w, b.w) and a.w.device.type == "cuda"
+
+
 @pytest.mark.parametrize("kind", ["linear", "fm"])
 def test_scoring_model_on_cuda_matches_cpu(cuda_device, tmp_path, kind):
     """The serving forward with its parameters on the card equals the CPU

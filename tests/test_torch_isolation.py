@@ -170,6 +170,34 @@ def test_submit_runs_with_the_blocked_packages(tmp_path):
         "worker0", "worker1"]
 
 
+@pytest.mark.parametrize("how", ["blocked", "plain"])
+def test_bin_dmlc_submit_torch_runs_a_job(tmp_path, how):
+    """``bin/dmlc-submit-torch --cluster local --num-workers 2`` and its
+    two workers: once with every process under the import block (the
+    script run through ``runpy``), once as the executable itself."""
+    worker = tmp_path / "worker.py"
+    worker.write_text(SUBMIT_WORKER)
+    script = os.path.join(REPO, "bin", "dmlc-submit-torch")
+    flags = ["--cluster", "local", "--num-workers", "2", "--heartbeat-ms",
+             "200", "--", sys.executable, str(worker), REPO, str(tmp_path)]
+    if how == "blocked":
+        cmd = [sys.executable, "-c", BLOCK + (
+            "import runpy\n"
+            "script = sys.argv[2]\n"
+            "sys.argv = sys.argv[2:]\n"
+            "runpy.run_path(script, run_name='__main__')\n"
+            "leaked = sorted(n for n in sys.modules "
+            "if n.split('.')[0] in BLOCKED)\n"
+            "assert not leaked, leaked\n"), REPO, script] + flags
+    else:
+        cmd = [script] + flags
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert sorted(p.name for p in tmp_path.glob("worker?")) == [
+        "worker0", "worker1"]
+
+
 def test_port_sources_name_no_blocked_package():
     # a second, static look: no import line anywhere in the port or in
     # chip_smoke.py reaches a blocked package

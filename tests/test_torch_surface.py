@@ -16,7 +16,18 @@ The JAX package's sources are read with ``ast``, never imported. A module
   adds a flag other than ``PORT_EXTRA_FLAGS``;
 - a ``pl.pallas_call`` site of the JAX package (a call node, not a
   comment) has no row in PERF.md §6's kernel table, or a row names no
-  existing CUDA source under ``dmlc_core_tpu_torch/csrc/``.
+  existing CUDA source under ``dmlc_core_tpu_torch/csrc/``;
+- a public function or method (``__init__`` included) takes its
+  parameters otherwise than the reference's (the signature gate, both
+  sides read with ``ast``): a reference parameter is missing or
+  keyword-only in the port, a default differs, a parameter positional in
+  both sits at another index, or a parameter only the port has
+  (``device``, ``pin``, ``group``, ...) is positional before one of the
+  reference's. ``SIGNATURE_EXCEPTIONS`` maps a reference parameter to the
+  port's name for it, or to None where the port has none (ROADMAP.md §1
+  says why);
+- a script under ``bin/`` has no ``-torch`` counterpart that imports the
+  port's module where the script imports the reference's.
 """
 
 import ast
@@ -57,11 +68,43 @@ NO_COUNTERPART = {
         "a NamedSharding; the port places one device a rank",
     "tpu/device_iter.py::match_placement_rules":
         "matches NamedSharding placement rules; one device a rank",
-    "scripts/loadrig.py::origin":
-        "the bench's origin is bench/remote_lane.py origin, with the "
-        "shaping knobs it uses and none of the fault knobs",
-    "scripts/loadrig.py::loadgen":
-        "an HTTP load generator the bench does not use",
+}
+
+# "<reference file>::<function or Class.method>" ->
+#     ({reference parameter: the port's parameter, or None}, why)
+SIGNATURE_EXCEPTIONS = {
+    "ops/pallas_kernels.py::csr_to_dense_pallas": (
+        {"chunk": None, "interpret": None},
+        "the Pallas grid's tile and interpret mode; the CUDA kernel runs "
+        "a thread a nonzero and the CPU path is the plain version"),
+    "parallel/ring.py::ring_allreduce": (
+        {"axis_name": "group"},
+        "a named shard_map axis; the port's ring runs over a process "
+        "group"),
+    "parallel/ring.py::ring_attention": (
+        {"axis_name": "group"},
+        "a named shard_map axis; the port's ring runs over a process "
+        "group"),
+    "parallel/ring.py::ring_attention_zigzag": (
+        {"axis_name": "group"},
+        "a named shard_map axis; the port's ring runs over a process "
+        "group"),
+    "parallel/ring.py::sequence_parallel_attention": (
+        {"mesh": None, "axis_name": "group"},
+        "a JAX mesh and its axis name; the port takes the axis's process "
+        "group, so causal and layout move up one place"),
+    "parallel/pipeline_parallel.py::pipeline_apply": (
+        {"axis_name": "group"},
+        "a named shard_map axis; the port's stages are the ranks of a "
+        "process group"),
+    "models/linear.py::LinearLearner.__init__": (
+        {"axis_name": None},
+        "the mesh axis the reference's psum names; the port reduces over "
+        "the DataMesh's process group"),
+    "models/fm.py::FMLearner.__init__": (
+        {"axis_name": None},
+        "the mesh axis the reference's psum names; the port reduces over "
+        "the DataMesh's process group"),
 }
 
 # reference entry point -> the port's counterpart
@@ -290,3 +333,220 @@ def test_the_tables_name_real_reference_names_with_reasons():
             if table is NO_COUNTERPART:
                 assert path in section1 and name in section1, (
                     f"ROADMAP.md §1 gives no reason for {key}")
+
+
+# -- the signature gate -------------------------------------------------
+def port_source(rel: str) -> str:
+    """The port's source file for reference module ``rel``."""
+    path = os.path.join(PORT, *port_module_name(rel).split(".")[1:])
+    return path + ".py" if os.path.isfile(path + ".py") else \
+        os.path.join(path, "__init__.py")
+
+
+def module_defs(path: str, depth: int = 0) -> dict:
+    """Top-level functions and classes of a module -> (node, the defs of
+    its module), following ``from dmlc_core_tpu_torch... import`` lines
+    for the names the module imports rather than defines."""
+    tree = ast.parse(open(path).read())
+    defs = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            defs[node.name] = (node, defs)
+    for node in tree.body:
+        if (depth < 4 and isinstance(node, ast.ImportFrom) and node.module
+                and node.module.split(".")[0] == "dmlc_core_tpu_torch"):
+            base = os.path.join(REPO, *node.module.split("."))
+            src = base + ".py" if os.path.isfile(base + ".py") else \
+                os.path.join(base, "__init__.py")
+            if not os.path.isfile(src):
+                continue
+            theirs = module_defs(src, depth + 1)
+            for a in node.names:
+                if a.name in theirs:
+                    defs.setdefault(a.asname or a.name, theirs[a.name])
+    return defs
+
+
+def find_method(cls: ast.ClassDef, defs: dict, name: str):
+    """The def of method ``name`` of ``cls``, through bases defined in
+    its module; None if neither has one."""
+    for m in cls.body:
+        if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) and \
+                m.name == name:
+            return m
+    for b in cls.bases:
+        if isinstance(b, ast.Name) and isinstance(
+                defs.get(b.id, (None,))[0], ast.ClassDef):
+            base, base_defs = defs[b.id]
+            found = find_method(base, base_defs, name)
+            if found is not None:
+                return found
+    return None
+
+
+def parameters(fn) -> list:
+    """[(name, kind, default node or None)]; kind is ``pos`` (positional
+    or keyword, or positional only), ``var``, ``kw`` or ``varkw``."""
+    a = fn.args
+    pos = a.posonlyargs + a.args
+    defaults = [None] * (len(pos) - len(a.defaults)) + list(a.defaults)
+    out = [(p.arg, "pos", d) for p, d in zip(pos, defaults)]
+    if a.vararg:
+        out.append((a.vararg.arg, "var", None))
+    out += [(p.arg, "kw", d) for p, d in zip(a.kwonlyargs, a.kw_defaults)]
+    if a.kwarg:
+        out.append((a.kwarg.arg, "varkw", None))
+    return out
+
+
+def default_value(node):
+    """A default's value where it is a constant expression, else its
+    source."""
+    if node is None:
+        return None
+    try:
+        return ("value", eval(compile(ast.Expression(node), "<default>",
+                                      "eval"), {"__builtins__": {}}, {}))
+    except Exception:  # a name (np.float32, ...): compare the source
+        return ("source", ast.unparse(node))
+
+
+def signature_faults(key: str, ref_fn, port_fn) -> list:
+    """Where ``port_fn`` takes its parameters otherwise than ``ref_fn``
+    (see the module docstring)."""
+    mapping = SIGNATURE_EXCEPTIONS.get(key, ({}, ""))[0]
+    ref = []  # (name in the port, kind, default, renamed)
+    for name, kind, default in parameters(ref_fn):
+        if name not in mapping:
+            ref.append((name, kind, default, False))
+        elif mapping[name] is not None:
+            ref.append((mapping[name], kind, default, True))
+    port = {n: (k, d) for n, k, d in parameters(port_fn)}
+    ref_pos = [r[0] for r in ref if r[1] == "pos"]
+    port_pos = [n for n, k, _ in parameters(port_fn) if k == "pos"]
+    faults = []
+    for name, kind, default, renamed in ref:
+        if name not in port:
+            faults.append(f"{name} is missing")
+            continue
+        pkind, pdefault = port[name]
+        if kind == "pos" and pkind != "pos":
+            faults.append(f"{name} is keyword-only")
+        if not renamed and default_value(default) != default_value(
+                pdefault):
+            faults.append(
+                f"{name}'s default is "
+                f"{ast.unparse(pdefault) if pdefault else 'none'}, not "
+                f"{ast.unparse(default) if default else 'none'}")
+        if kind == "pos" == pkind and \
+                ref_pos.index(name) != port_pos.index(name):
+            faults.append(f"{name} sits at {port_pos.index(name)}, not "
+                          f"{ref_pos.index(name)}")
+    ours = set(r[0] for r in ref)
+    for i, name in enumerate(port_pos):
+        later = [n for n in port_pos[i + 1:] if n in ours]
+        if name not in ours and later:
+            faults.append(f"port-only {name} is positional before "
+                          f"{later[-1]}")
+    return faults
+
+
+def signature_pairs(rel: str) -> list:
+    """(table key, reference def, port def or None) of every public
+    function and of every public method or ``__init__`` of every public
+    class defined in reference module ``rel``."""
+    tree = ast.parse(open(os.path.join(REF, rel)).read())
+    port = module_defs(port_source(rel))
+    pairs = []
+    for node in tree.body:
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)) or node.name.startswith("_"):
+            continue
+        key = f"{rel}::{node.name}"
+        if key in NO_COUNTERPART:
+            continue
+        name = RENAMED[key][0] if key in RENAMED else node.name
+        theirs, defs = port.get(name, (None, {}))
+        if not isinstance(node, ast.ClassDef):
+            pairs.append((key, node, theirs if not isinstance(
+                theirs, ast.ClassDef) else None))
+            continue
+        for m in node.body:
+            if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) and \
+                    (m.name == "__init__" or not m.name.startswith("_")):
+                pairs.append((f"{key}.{m.name}", m,
+                              find_method(theirs, defs, m.name)
+                              if isinstance(theirs, ast.ClassDef)
+                              else None))
+    return pairs
+
+
+@pytest.mark.parametrize("rel", ref_modules())
+def test_every_signature_matches_the_reference(rel):
+    if not os.path.isfile(port_source(rel)):
+        assert all(k in NO_COUNTERPART for k in public_names(rel).values())
+        return
+    faults = []
+    for key, ref_fn, port_fn in signature_pairs(rel):
+        if port_fn is None:
+            faults.append(f"{key}: no def found in the port")
+            continue
+        faults += [f"{key}: {f}"
+                   for f in signature_faults(key, ref_fn, port_fn)]
+    assert not faults, (
+        f"{port_module_name(rel)} takes parameters otherwise than the "
+        f"reference: {faults}; match them, or give a reason in "
+        "SIGNATURE_EXCEPTIONS and ROADMAP.md §1")
+
+
+def test_signature_exceptions_name_real_parameters_with_reasons():
+    roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
+    section1 = roadmap.split("### 1.")[1].split("\n### 2.")[0]
+    pairs = {}
+    for rel in {k.split("::")[0] for k in SIGNATURE_EXCEPTIONS}:
+        pairs.update({k: (r, p) for k, r, p in signature_pairs(rel)})
+    for key, (mapping, reason) in SIGNATURE_EXCEPTIONS.items():
+        assert len(reason.split()) >= 4, key
+        assert key in pairs, f"{key} is no public def of the reference"
+        ref_fn, port_fn = pairs[key]
+        ref_names = [n for n, _, _ in parameters(ref_fn)]
+        port_names = [n for n, _, _ in parameters(port_fn)]
+        path, name = key.split("::")
+        assert path in section1 and name.split(".")[0] in section1, (
+            f"ROADMAP.md §1 gives no reason for {key}")
+        for ref_name, port_name in mapping.items():
+            assert ref_name in ref_names, f"{key}: no parameter {ref_name}"
+            assert port_name is None or port_name in port_names, (key,
+                                                                   port_name)
+            assert ref_name in section1, (
+                f"ROADMAP.md §1 gives no reason for {key}'s {ref_name}")
+
+
+def bin_imports(path: str) -> list:
+    """The modules a script's ``import`` and ``from`` lines name."""
+    out = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.ImportFrom) and node.module:
+            out.append(node.module)
+        elif isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+    return out
+
+
+BIN = os.path.join(REPO, "bin")
+
+
+@pytest.mark.parametrize("script", sorted(
+    f for f in os.listdir(BIN) if not f.endswith("-torch")))
+def test_every_bin_script_has_a_torch_counterpart(script):
+    ref = bin_imports(os.path.join(BIN, script))
+    path = os.path.join(BIN, script + "-torch")
+    assert os.path.isfile(path) and os.access(path, os.X_OK), (
+        f"bin/{script} has no executable bin/{script}-torch")
+    ours = bin_imports(path)
+    for mod in ref:
+        if mod.split(".")[0] == "dmlc_core_tpu":
+            assert "dmlc_core_tpu_torch" + mod[len("dmlc_core_tpu"):] in ours
+    assert not [m for m in ours if m.split(".")[0] in (
+        "dmlc_core_tpu", "jax", "jaxlib", "ml_dtypes")], ours

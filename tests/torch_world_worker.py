@@ -225,7 +225,7 @@ def _dp(spec, out):
 
     device = spec.get("device", "cpu")
     D.init_from_env(device=device, backend=spec.get("backend"))
-    mesh = data_mesh(device)
+    mesh = data_mesh(device=device)
     counts = _count_collectives()
     res = {}
     for case in spec["cases"]:
@@ -283,7 +283,7 @@ def _ckpt_mid(spec, out):
 
     D.init_from_env(device="cpu")
     part, npart = process_part()
-    mesh = data_mesh("cpu")
+    mesh = data_mesh(device="cpu")
     learner = LinearLearner(spec["features"], mesh=mesh,
                             learning_rate=spec["lr"], device="cpu")
     params = learner.init()
