@@ -5,11 +5,11 @@
 .PHONY: ci lint analyze native-test tsan-test asan-test ubsan-test \
         parse-lanes telemetry trace cache range fsfault rig serving slo \
         device zerocopy pytest liveness elastic mesh bench-smoke dryrun doc \
-        clean
+        torch-lint torch-analyze torch-doc clean
 
 ci: lint analyze native-test tsan-test asan-test ubsan-test parse-lanes \
     telemetry trace cache range fsfault rig serving slo device zerocopy \
-    pytest liveness elastic mesh dryrun doc
+    pytest liveness elastic mesh dryrun doc torch-lint torch-analyze torch-doc
 	@echo "== all CI lanes green =="
 
 asan-test:
@@ -153,6 +153,20 @@ ubsan-test:
 # warnings to errors, Makefile:93-97)
 doc:
 	python3 scripts/gendoc.py
+
+# The PyTorch/H100 port's QA lane (dmlc_core_tpu_torch/qa/): the lint rules
+# over the port's tree; the analyzer's passes over the port, its two C
+# boundaries (cpp/src/capi.cc <-> io/native.py, csrc/*.cu <->
+# ops/hopper_kernels.py) and its metric/knob contracts with the reference
+# (exit code = finding count); doc/torch/ regenerated from the live port.
+torch-lint:
+	python3 -m dmlc_core_tpu_torch.qa.lint
+
+torch-analyze:
+	python3 -m dmlc_core_tpu_torch.qa.analyze
+
+torch-doc:
+	python3 -m dmlc_core_tpu_torch.qa.gendoc
 
 # builds + runs the C++ unit binary (includes the big-endian golden-byte
 # serializer tests -- the QEMU-free equivalent of the reference s390x lane)

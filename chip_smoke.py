@@ -32,6 +32,14 @@ CUDA toolkit (nvcc) and a C++ compiler. Phases, one JSON line each:
                  ``impl="xla"`` bit for bit with one launch (counted); a
                  loopback ``RabitTracker`` logs ``tracker listening on`` in
                  the reference's ``[HH:MM:SS] INFO`` format on stderr.
+   ``qa``      — the port's QA lane on this machine:
+                 ``python -m dmlc_core_tpu_torch.qa.analyze`` over the
+                 checkout (its struct layout probe compiled by the compiler
+                 that builds the native core here) and
+                 ``python -m dmlc_core_tpu_torch.qa.lint``; the finding
+                 count, the lint's files with problems, whether the probe
+                 ran and the seconds. Any finding, lint problem or skipped
+                 probe fails the run.
 3. ``kernels`` — every hand-written kernel against its plain PyTorch version
                  on the card: the bench probe shape, the training shape
                  (also with its nonzeros permuted), a real ``.crec`` batch
@@ -451,6 +459,51 @@ def surface_phase(text_uri: str, device: str = "cuda",
            "tracker_line": tracker_lines[0],
            "launches": {"csr_to_dense": res["launches"]}}
     emit(out)
+    return out
+
+
+# -- phase 2c: the port's QA lane -------------------------------------------
+QA_TIMEOUT_S = 300
+
+
+def qa_phase() -> dict:
+    """The port's analyzer over this checkout, with the layout probe of
+    ``cpp/src/capi.cc``'s structs compiled here, and the port's lint, each
+    in a process of its own. Emits the ``qa`` line before its checks: any
+    finding, lint problem or skipped probe fails the run."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def run(module: str):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", module],
+                              capture_output=True, text=True,
+                              timeout=QA_TIMEOUT_S, cwd=repo)
+        return proc, time.perf_counter() - t0
+
+    analyze, analyze_s = run("dmlc_core_tpu_torch.qa.analyze")
+    lint, lint_s = run("dmlc_core_tpu_torch.qa.lint")
+    count = re.search(r"analyze: repo: (\d+) finding\(s\)", analyze.stdout)
+    probe = re.search(r"layout probe ran over (\d+) struct", analyze.stdout)
+    checked = re.search(r"lint: (\d+) files checked, (\d+) with problems",
+                        lint.stdout)
+    out = {"phase": "qa",
+           "findings": int(count.group(1)) if count else None,
+           "layout_probe": "ran" if probe else "skipped",
+           "probe_structs": int(probe.group(1)) if probe else 0,
+           "lint_files": int(checked.group(1)) if checked else None,
+           "lint_files_with_problems":
+               int(checked.group(2)) if checked else None,
+           "analyze_s": analyze_s, "lint_s": lint_s,
+           "seconds": analyze_s + lint_s}
+    emit(out)
+    require(analyze.returncode == 0 and out["findings"] == 0,
+            "qa: the port's analyzer has findings", rc=analyze.returncode,
+            stdout=analyze.stdout[-3000:], stderr=analyze.stderr[-3000:])
+    require(probe is not None, "qa: the struct layout probe was skipped",
+            stdout=analyze.stdout[-3000:])
+    require(lint.returncode == 0 and out["lint_files_with_problems"] == 0,
+            "qa: the port's lint has problems", rc=lint.returncode,
+            stdout=lint.stdout[-3000:], stderr=lint.stderr[-3000:])
     return out
 
 
@@ -3915,6 +3968,7 @@ def main() -> int:
             "drec_convert_s")}, "rowblock_iter": rowblock_epochs(
                 data["text"], os.path.join(workdir, "cache"))})
         surface = surface_phase(data["text"])
+        qa_phase()
         cases = kernels_phase([crec_kernel_case(data["crec"])])
         run, params = train_phase(data["text"])
         tel = telemetry_phase(data["text"], run["losses"], workdir)

@@ -68,6 +68,7 @@ def parse_rows_per_sec(path: str, rows: int, nthread: int,
 
 
 def occupancy_row(stats: dict) -> dict:
+    """The pipeline-occupancy counters out of a ``pipeline_stats()`` dict."""
     return {k: stats[k] for k in OCCUPANCY_KEYS if k in stats}
 
 

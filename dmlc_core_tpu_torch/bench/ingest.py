@@ -44,6 +44,7 @@ def consume(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def tree_nbytes(batch) -> int:
+    """Bytes of a device batch's tensors."""
     return sum(v.numel() * v.element_size() for v in batch.tree().values())
 
 

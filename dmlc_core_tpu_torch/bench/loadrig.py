@@ -415,6 +415,8 @@ def add_origin_args(o) -> None:
 
 
 def main(argv=None) -> int:
+    """Command line: the rig's ``origin``, ``parse-client``,
+    ``fetch-client`` and ``loadgen`` subcommands."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
     o = sub.add_parser("origin", help="serve a mock backend out of "

@@ -32,6 +32,8 @@ from dmlc_core_tpu_torch.tracker.wire import TrackerAbortedError, env_int
 
 
 def main(argv=None) -> int:
+    """One rank of the mesh lane: ``PROGRESS_DIR [STEPS [STEP_SLEEP
+    [DEVICE]]]``."""
     argv = sys.argv[1:] if argv is None else argv
     progress_dir = argv[0]
     steps = int(argv[1]) if len(argv) > 1 else 500
@@ -44,7 +46,10 @@ def main(argv=None) -> int:
     rank = client.start().rank
     mon = current_monitor()
     num_shards = env_int("DMLC_TRACKER_NUM_SHARDS", 0)
-    nworkers = int(os.environ["DMLC_NUM_WORKER"])
+    nworkers = env_int("DMLC_NUM_WORKER", 0)
+    if nworkers < 1:
+        raise RuntimeError(f"DMLC_NUM_WORKER={nworkers}: the launcher "
+                           f"exports the world's size, at least 1")
 
     wd = StepWatchdog(rank=rank).start()
     held = None  # (epoch, shard) while this rank holds a lease

@@ -358,6 +358,8 @@ def remote_lane_probe(path: str, nthread: int, latency_ms: int = 20,
 
 
 def main(argv: Optional[list] = None) -> int:
+    """Command line: ``origin`` serves a mock backend out of this checkout's
+    ``tests/`` (the remote lane's child process)."""
     from dmlc_core_tpu_torch.bench.loadrig import add_origin_args
     ap = argparse.ArgumentParser(description="serve a mock backend out of "
                                              "process (pre-forked workers)")

@@ -40,10 +40,13 @@ copy completed. The consumer's stream then ``wait_event``\\ s on the copy
 and every device tensor gets ``record_stream`` for that stream, since the
 tensors were allocated on the side stream. On the CPU (``device="cpu"``)
 ``torch.from_numpy`` aliases the staging buffer instead of copying; that
-is counted in ``device_zero_copy_batches_total``, and such buffers are
-never recycled, because the consumer's tensors still read them. With
-``to_device=False`` the iterator hands over the host batches themselves,
-unpinned and never recycled, as the reference's ``to_device=False`` does.
+is counted in ``device_zero_copy_batches_total``, and, as the reference
+does on its aliasing backends, such buffers are parked behind weakrefs and
+recycled once the consumer has dropped every tensor that reads them (a
+full parking lot drops its oldest entry, counted in
+``device_recycle_skipped``). With ``to_device=False`` the iterator hands
+over the host batches themselves, unpinned and never recycled, as the
+reference's ``to_device=False`` does.
 
 :func:`torch_profiler_capture` is the counterpart of the reference's
 ``jax_profiler_capture``: under ``DMLC_TORCH_PROFILE=<dir>`` it records
@@ -64,6 +67,7 @@ import os
 import queue
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, Optional
 
@@ -105,6 +109,7 @@ def _get_lane_metrics():
             "host_q": telemetry.gauge("device_host_q_depth"),
             "ready_q": telemetry.gauge("device_ready_q_depth"),
             "zc_batches": telemetry.counter("device_zero_copy_batches_total"),
+            "recycle_skip": telemetry.gauge("device_recycle_skipped"),
         }
     return _lane_metrics
 
@@ -1082,6 +1087,15 @@ class DeviceRowBlockIter:
         self._thread: Optional[threading.Thread] = None
         self._xfer_thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        # deferred recycling on the CPU, whose tensors alias the staging
+        # buffers: parked (host batch, weakrefs) entries, recycled once
+        # the consumer has dropped the batch; overflow drops the oldest
+        # entry for real (device_recycle_skipped). Touched only by the
+        # transfer thread or the prefetch=0 generator, never both, and by
+        # the joins once those have stopped.
+        self._deferred: list = []
+        self._deferred_cap = max(4, prefetch * 2)
+        self._recycle_skipped = 0
         self.batches_consumed = 0
         self._skip_batches = 0
         self._epoch = 0
@@ -1178,16 +1192,24 @@ class DeviceRowBlockIter:
 
     # -- host -> device -------------------------------------------------------
     def _copy(self, tree):
-        """Start the host->device copies; returns (device tree, event)."""
+        """Start the host->device copies; returns (device tree, event,
+        alias refs). On the CPU the tensors alias the staging memory (the
+        zero-copy counterpart): no event, and weakrefs that die once no
+        tensor reads a staging buffer any more."""
         if self._stream is None:
-            # CPU: alias the staging memory (the zero-copy counterpart)
-            return {k: torch.from_numpy(v) for k, v in tree.items()}, None
+            # each tensor's storage holds its own numpy view of the buffer
+            # until every tensor and view over that storage is gone, so a
+            # weakref to that view outlives reshapes and dtype views of
+            # the handed-out tensor, which a weakref to the tensor would not
+            views = [(k, v.view()) for k, v in tree.items()]
+            return ({k: torch.from_numpy(a) for k, a in views}, None,
+                    tuple(weakref.ref(a) for _k, a in views))
         with torch.cuda.stream(self._stream):
             out = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
                    for k, v in tree.items()}
             ev = torch.cuda.Event()
             ev.record(self._stream)
-        return out, ev
+        return out, ev, ()
 
     def _device_put(self, host):
         """Copy one host batch to the device. Returns (device batch, copy
@@ -1205,7 +1227,7 @@ class DeviceRowBlockIter:
         try:
             with telemetry.span("device.put", bytes=nbytes):
                 t0 = time.perf_counter()
-                out, ev = self._copy(tree)
+                out, ev, refs = self._copy(tree)
                 t1 = time.perf_counter()
                 if ev is not None:
                     ev.synchronize()
@@ -1226,9 +1248,35 @@ class DeviceRowBlockIter:
         m["bytes"].inc(nbytes)
         if ev is None:
             m["zc_batches"].inc()
+            self._recycle_or_defer(host, refs, m)
         else:
             self.batcher.recycle(host)
         return _device_batch(host, out), ev
+
+    def _recycle_or_defer(self, host, refs, m) -> None:
+        """Park ``host``'s staging buffers, aliased by the batch being
+        handed out, behind ``refs`` and recycle the parked batches whose
+        tensors the consumer has dropped (the reference's
+        ``_recycle_or_defer``). Without this every CPU batch would be a
+        fresh allocation. A parking lot over its cap drops its oldest
+        entry for real, counted in ``device_recycle_skipped``."""
+        self._sweep_deferred()
+        self._deferred.append((host, refs))
+        if len(self._deferred) > self._deferred_cap:
+            self._deferred.pop(0)
+            self._recycle_skipped += 1
+            m["recycle_skip"].set(self._recycle_skipped)
+
+    def _sweep_deferred(self) -> None:
+        """Recycle parked host batches whose aliasing tensors have all
+        been dropped by the consumer."""
+        keep = []
+        for host, refs in self._deferred:
+            if all(r() is None for r in refs):
+                self.batcher.recycle(host)
+            else:
+                keep.append((host, refs))
+        self._deferred = keep
 
     def _hand_over(self, item):
         """Make a transferred batch safe to use on the consumer's current
@@ -1325,6 +1373,10 @@ class DeviceRowBlockIter:
                     q.get_nowait()
                 except queue.Empty:
                     break
+        # reclaim what the consumer has released; drop the rest (their
+        # tensors may still read the staging memory)
+        self._sweep_deferred()
+        self._deferred = []
         self._stop.clear()
 
     def before_first(self) -> None:
@@ -1358,7 +1410,8 @@ class DeviceRowBlockIter:
         Unlike the cooperative :meth:`_join_threads`, the joins give up at
         the deadline (the threads are daemons; the process is about to
         exit). A CUDA staging buffer goes back to the pool only after its
-        copy's event completed, so there is no buffer to force-drop here.
+        copy's event completed, so only the CPU's parked buffers are
+        force-dropped here (once the threads joined).
         Counted in ``device_abort_drains_total``; idempotent, and
         :meth:`close` stays safe after it."""
         deadline = time.monotonic() + max(
@@ -1387,6 +1440,11 @@ class DeviceRowBlockIter:
                 except queue.Empty:
                     break
         if joined:
+            # reclaim what the consumer released and drop the rest; a
+            # straggler transfer thread may still touch the parking lot,
+            # so it is left alone then
+            self._sweep_deferred()
+            self._deferred = []
             # only a fully stopped pipeline may rearm; a straggler thread
             # still sees _stop and exits on its own
             self._stop.clear()

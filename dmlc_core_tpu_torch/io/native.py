@@ -6,7 +6,8 @@ The port never loads the JAX package's library: it builds ``cpp/`` into
 the package's build lock, and rebuilds only when a ``cpp/src`` file is
 newer than the library. The binding covers what the port calls: the
 threaded text parser (:class:`NativeParser`, 32- or 64-bit feature
-ids, its pipeline knobs and counters, and the shard cache), the fused padded-batch assembler (:class:`NativeBatcher`), the
+ids, its pipeline knobs and counters, and the shard cache), the fused
+padded-batch assembler (:class:`NativeBatcher`), the
 binary lanes' batch fills (:class:`NativeCsrRecBatcher` for ``.crec``,
 :class:`NativeDenseRecBatcher` for ``.drec``), RecordIO framing
 (:class:`NativeRecordIOWriter`, :class:`NativeRecordIOReader`), the
@@ -202,6 +203,8 @@ def _declare_signatures(cdll: ctypes.CDLL) -> None:
         "dct_telemetry_reset": (i, []),
         "dct_telemetry_enable": (i, [i]),
         "dct_trace_snapshot": (i, [c.POINTER(c.c_char_p)]),
+        "dct_parser_create": (i, [c.c_char_p, u, u, c.c_char_p, i, i, i,
+                                  c.POINTER(vp)]),
         "dct_parser_create_ex": (i, [c.c_char_p, u, u, c.c_char_p, i, i,
                                      i, i, c.c_char_p, c.c_char_p,
                                      c.POINTER(vp)]),

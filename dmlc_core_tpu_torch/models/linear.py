@@ -1,7 +1,8 @@
 """Sparse linear learner (port of ``models/linear.py``).
 
 Logistic, squared or pairwise (RankNet over qid groups) loss over
-PaddedBatch/DenseBatch shards; parameters and math stay float32. ``margin_path="dense"`` materializes the shard
+PaddedBatch/DenseBatch shards; parameters and math stay float32.
+``margin_path="dense"`` materializes the shard
 through ``ops.sparse.csr_to_dense`` — with ``DCT_CSR_TO_DENSE=pallas``
 that is the hand-written Hopper kernel, once per step — and takes one
 matmul; the default ``"segment"`` path gathers and segment-sums.

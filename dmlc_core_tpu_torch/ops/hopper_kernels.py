@@ -36,6 +36,19 @@ CSR_TO_DENSE_LIB = os.path.join(BUILD_DIR, "libcsr_to_dense.so")
 # what the kernel is compiled for: Hopper, with its arch-specific features
 NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
+# The kernel library's C boundary, one row a function:
+# name -> (restype, [argtypes]), the row form of io/native.py's table; the
+# QA lane (dmlc_core_tpu_torch.qa.analyze) holds both against their C
+# sources. Pointers and the stream cross as c_void_p.
+_vp = ctypes.c_void_p
+_SIGNATURES = {
+    # int dct_csr_to_dense_f32(row, col, val, long long nnz, int num_rows,
+    #                          int num_features, out, stream)
+    "dct_csr_to_dense_f32": (ctypes.c_int, [_vp, _vp, _vp, ctypes.c_longlong,
+                                            ctypes.c_int, ctypes.c_int, _vp,
+                                            _vp]),
+}
+
 _lib = None
 _launch_fn = None  # the library's dct_csr_to_dense_f32, bound once
 _lib_lock = threading.Lock()
@@ -69,12 +82,11 @@ def _kernel_lib() -> ctypes.CDLL:
         if _lib is None:
             build()
             cdll = ctypes.CDLL(CSR_TO_DENSE_LIB)
-            vp = ctypes.c_void_p
-            fn = cdll.dct_csr_to_dense_f32
-            fn.argtypes = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_int, vp, vp]
-            fn.restype = ctypes.c_int
-            _launch_fn, _lib = fn, cdll
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(cdll, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _launch_fn, _lib = cdll.dct_csr_to_dense_f32, cdll
         return _lib
 
 

@@ -151,6 +151,7 @@ class StepWatchdog:
         return self
 
     def stop(self) -> None:
+        """Stop the watchdog thread and wait for it (idempotent)."""
         self._stop.set()
         th, self._thread = self._thread, None
         if th is not None:

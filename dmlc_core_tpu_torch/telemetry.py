@@ -794,9 +794,11 @@ def snapshot(native: Optional[bool] = None) -> dict:
 
 
 # One-line HELP text per metric name the port or its native core emits:
-# the reference's catalog (doc/observability.md) less the names of planes
-# the port does not have yet, word for word except serve_forward_us (the
-# port's forward is eager, not jitted).
+# the reference's catalog (doc/observability.md) less the rows the port has
+# no counterpart for (qa/contracts.py NO_COUNTERPART, each with its
+# reason), word for word except serve_forward_us (the port's forward is
+# eager, not jitted). `python -m dmlc_core_tpu_torch.qa.analyze` holds
+# this table to both.
 METRIC_HELP: Dict[str, str] = {
     "io_requests_total": "HTTP requests sent",
     "io_retries_total": "backoff sleeps taken",
@@ -857,6 +859,10 @@ METRIC_HELP: Dict[str, str] = {
     "device_zero_copy_batches_total":
         "batches transferred by the zero-copy device_put path (staging "
         "buffers aliased/DMA'd in place, no host copy)",
+    "device_recycle_skipped":
+        "aliased host staging buffers dropped from the deferred-recycle "
+        "parking lot because the consumer held more batches than its "
+        "depth (zero-copy backends)",
     "device_overlap_ratio":
         "fraction of transfer time hidden behind consumer compute "
         "(-1 before any transfer)",
@@ -906,6 +912,17 @@ METRIC_HELP: Dict[str, str] = {
         "error-budget burn multiple per objective and window",
     "slo_page": "1 while any SLO objective is paging (latched)",
     "slo_page_trips_total": "SLO page activations per objective",
+    # measurement rig (bench/loadrig.py, the port of scripts/loadrig.py)
+    "rig_requests_total": "open/closed-loop requests completed",
+    "rig_errors_total": "load-generator requests that failed",
+    "rig_shed_total":
+        "open-loop arrivals shed past the lateness budget",
+    "rig_intended_us":
+        "request latency from the INTENDED start time (us; "
+        "coordinated-omission-safe)",
+    "rig_service_us":
+        "request latency from the actual send time (us; hides queueing "
+        "behind a stalled origin — kept for the divergence itself)",
     "host_cpu_busy_frac": "whole-host CPU busy fraction, last interval",
     "host_rss_bytes": "sampling process RSS, last sample",
     "serve_requests_total": "HTTP requests parsed by the front end",

@@ -86,6 +86,7 @@ class _EventLog:
             pass
 
     def close(self) -> None:
+        """Close the log file (errors on close are ignored)."""
         try:
             self._fp.close()
         except OSError:

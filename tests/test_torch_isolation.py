@@ -40,9 +40,10 @@ import dmlc_core_tpu_torch
 names = ["dmlc_core_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(dmlc_core_tpu_torch.__path__,
                                           "dmlc_core_tpu_torch.")]
-# the fourth to ninth slices' modules by name, so none can drop out
+# the fourth to twelfth slices' modules by name, so none can drop out
 # unnoticed
-for mod in ("bench", "bench.__main__", "bench.datasets", "bench.record",
+for mod in ("qa", "qa.srcwalk", "qa.lint", "qa.contracts", "qa.analyze",
+            "qa.gendoc", "bench", "bench.__main__", "bench.datasets", "bench.record",
             "bench.host_lanes", "bench.ingest", "bench.kernel_probe",
             "bench.device_lane", "bench.loadrig", "bench.serving_lane",
             "bench.remote_lane", "bench.mesh_worker", "bench.mesh_lane",

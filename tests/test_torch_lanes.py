@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-from dmlc_core_tpu.io import convert as ref_convert
 from dmlc_core_tpu.tpu import device_iter as ref_di
 from tests.torch_reference_native import reference_native  # noqa: F401
 

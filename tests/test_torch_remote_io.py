@@ -9,7 +9,8 @@ the remote-I/O counters under the same ``set_io_fault_plan``; a stalled
 read ended by ``set_io_timeout_ms``; the WebHDFS delegation token and
 Authorization header as the mock sees them; ``https://`` through the
 port's own TLS helper (``ensure_tls_proxy``) against
-``tests/mock_origin.py`` serving TLS with a self-signed certificate. Each package loads its own build of the native core; the
+``tests/mock_origin.py`` serving TLS with a self-signed certificate.
+Each package loads its own build of the native core; the
 reference's comes from the locked build (``tests/torch_reference_native.py``).
 """
 
