@@ -1,0 +1,8 @@
+"""Share of the traced training window in which no kernel, copy or
+memset ran on the card, in %."""
+
+
+def read(t):
+    if t.window_s <= 0 or t.busy_s <= 0 or "steps" not in t.extra:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
