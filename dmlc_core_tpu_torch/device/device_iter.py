@@ -438,6 +438,21 @@ class _HostBufferPool:
                 lst.append(arrs)
 
 
+def _observe_padding(batch) -> None:
+    """``device_batch_nnz`` (useful nonzeros) and ``device_batch_slots``
+    (D x the nnz bucket) of a host CSR batch. Every batcher fills a
+    shard's row plane in row order and pads its tail with row R, so one
+    binary search a shard counts the useful entries; R goes in as the
+    plane's own dtype, since another would make numpy copy the plane."""
+    row = batch.row if isinstance(batch, PaddedBatch) else None
+    if row is None:
+        return
+    pad = row.dtype.type(batch.rows_per_shard)
+    nnz = sum(int(np.searchsorted(plane, pad)) for plane in row)
+    telemetry.histogram("device_batch_nnz").observe(nnz)
+    telemetry.histogram("device_batch_slots").observe(row.size)
+
+
 def _check_shards(batch_rows: int, num_shards: int) -> None:
     if batch_rows % num_shards != 0:
         raise DMLCError(
@@ -1099,6 +1114,8 @@ class DeviceRowBlockIter:
         self.batches_consumed = 0
         self._skip_batches = 0
         self._epoch = 0
+        # perf_counter at the open epoch turn's before_first(), or None
+        self._turn_t0: Optional[float] = None
 
     # -- staging threads -----------------------------------------------------
     # Queue ops are stop-aware, so a close-time drain cannot leave a peer
@@ -1136,7 +1153,8 @@ class DeviceRowBlockIter:
             self.batcher.recycle(batch)
 
     def _stage(self):
-        """One host batch (parse + fill), timed as ``device.stage``."""
+        """One host batch (parse + fill), timed as ``device.stage``; a CSR
+        batch's padding is observed too (:func:`_observe_padding`)."""
         if not telemetry.enabled():
             return self.batcher.next_batch()
         t0 = time.perf_counter()
@@ -1144,6 +1162,7 @@ class DeviceRowBlockIter:
         dur_us = (time.perf_counter() - t0) * 1e6
         if batch is not None:
             _get_lane_metrics()["stage_us"].observe(dur_us)
+            _observe_padding(batch)
             telemetry.emit_span("device.stage", t0 * 1e6, dur_us,
                                 rows=batch.total_rows)
         return batch
@@ -1301,7 +1320,10 @@ class DeviceRowBlockIter:
                 return
             item = self._device_put(host)
             self.batches_consumed += 1
-            yield self._hand_over(item)
+            batch = self._hand_over(item)
+            if self._turn_t0 is not None:
+                self._end_turn()
+            yield batch
 
     def __iter__(self) -> Iterator:
         if self._prefetch == 0:
@@ -1326,7 +1348,10 @@ class DeviceRowBlockIter:
                     return
                 raise item
             self.batches_consumed += 1
-            yield self._hand_over(item)
+            batch = self._hand_over(item)
+            if self._turn_t0 is not None:
+                self._end_turn()
+            yield batch
 
     # -- mid-epoch checkpoint/resume ----------------------------------------
     def state(self) -> Dict[str, Any]:
@@ -1380,9 +1405,22 @@ class DeviceRowBlockIter:
         self._stop.clear()
 
     def before_first(self) -> None:
-        """Restart iteration as the next epoch."""
+        """Restart iteration as the next epoch. With telemetry on, the
+        turn from here to the hand-over of the new epoch's first batch
+        (the joins, the reset, the restart, the first stage and copy) is
+        observed once as ``device_epoch_turn_us`` and a
+        ``device.epoch_turn`` span."""
+        t0 = time.perf_counter() if telemetry.enabled() else None
         self._epoch += 1
         self._reset_stream()
+        self._turn_t0 = t0
+
+    def _end_turn(self) -> None:
+        """Close the epoch turn at the new epoch's first hand-over."""
+        t0, self._turn_t0 = self._turn_t0, None
+        dur_us = (time.perf_counter() - t0) * 1e6
+        telemetry.histogram("device_epoch_turn_us").observe(dur_us)
+        telemetry.emit_span("device.epoch_turn", t0 * 1e6, dur_us)
 
     def _reset_stream(self) -> None:
         self._join_threads()

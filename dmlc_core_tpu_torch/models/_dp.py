@@ -25,6 +25,20 @@ same collectives and the global mean stays the mean over real rows. When
 no rank had a batch the step applies nothing and :attr:`last_active` is
 0, which ends the epoch everywhere at once.
 
+With telemetry on (:func:`telemetry.enabled`), a step observes
+``step_host_us``, the caller's thread issuing it, and its phases
+``step_forward_us`` (``_shard_loss``), ``step_backward_us``
+(``torch.autograd.grad``), ``step_reduce_us`` (``_reduce``, with a mesh
+only) and ``step_update_us`` (``_apply``). A phase is stream time between
+two markers: ``time.perf_counter()`` on the CPU, where ops run
+synchronously, and on CUDA timing events recorded on the current stream
+and read once done, never waited for (:class:`_PhaseTimer`). Stream time is
+the card's time only where the card sets the pace; where the host does,
+it reads the host's launch pace. While a profiler records, the step and
+its phases also run inside the ``record_function`` ranges ``dct.step``
+and ``dct.step.<phase>``. None of this launches work on the card or waits
+for it.
+
 Subclasses implement:
   _shard_loss(params, shard, rows_per_shard) -> (loss_sum, weight_sum)
   _apply(params, grads, denom) -> new params
@@ -32,16 +46,133 @@ Subclasses implement:
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import time
+from collections import deque
+from typing import Optional, Tuple
 
 import torch
 
+from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.device.device_iter import (to_device_batch,
                                                     unpack_shard)
 from dmlc_core_tpu_torch.device.sharding import local_device_count
 from dmlc_core_tpu_torch.parallel.distributed import allreduce_sum_
 
 __all__ = ["DataParallelModel"]
+
+_NULL = contextlib.nullcontext()
+# the step's phases: (profiler range, histogram); a histogram registers
+# at its first observation
+_PHASES = {
+    "forward": ("dct.step.forward",
+                lambda: telemetry.histogram("step_forward_us")),
+    "backward": ("dct.step.backward",
+                 lambda: telemetry.histogram("step_backward_us")),
+    "reduce": ("dct.step.reduce",
+               lambda: telemetry.histogram("step_reduce_us")),
+    "update": ("dct.step.update",
+               lambda: telemetry.histogram("step_update_us")),
+}
+
+
+def _profiled(name: str):
+    """``record_function(name)`` while a profiler records, else nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL
+
+
+class _PhaseTimer:
+    """One model's step phases, timed without waiting on the card.
+
+    A phase runs from a marker to the next: the step's first phase takes
+    its own start marker, and each later one starts at its predecessor's
+    end marker, since the step launches nothing between its phases. On
+    the CPU a marker is ``time.perf_counter()`` and a phase is observed as
+    it ends. On CUDA a marker is a timing event recorded on the current
+    stream, from a set of ``1 + len(_PHASES)`` that the step takes from a
+    pool of :attr:`POOL` sets made once. After the step is issued,
+    :meth:`end` resolves the pending sets in order, while the card runs
+    that step: a set whose last event's ``query()`` says done is observed
+    and goes back to the pool, and the first one still running ends the
+    pass. With no set free, a step goes untimed."""
+
+    POOL = 8
+
+    def __init__(self):
+        self.on = False
+        self._device: Optional[torch.device] = None
+        self._stream = None
+        self._free: list = []
+        self._pending: deque = deque()
+        self._events: Optional[list] = None
+        self._marks: list = []  # perf_counter readings, or event indices
+        self._laps: list = []   # (phase, start event, end event)
+
+    def begin(self, device: torch.device) -> None:
+        self.on = True
+        self._marks = []
+        if device.type != "cuda":
+            self._device = None
+            return
+        if device != self._device:
+            self._free = [[torch.cuda.Event(enable_timing=True)
+                           for _ in range(1 + len(_PHASES))]
+                          for _ in range(self.POOL)]
+            self._pending.clear()
+            self._device = device
+        if not self._free:
+            self._resolve()
+        self._events = self._free.pop() if self._free else None
+        self._stream = torch.cuda.current_stream(device)
+        self._laps = []
+
+    def end(self) -> None:
+        self.on = False
+        if self._events is None:
+            return
+        if self._laps:
+            self._pending.append((self._events, self._laps))
+        else:
+            self._free.append(self._events)
+        self._events = None
+        self._resolve()
+
+    def _resolve(self) -> None:
+        while self._pending:
+            events, laps = self._pending[0]
+            if not events[laps[-1][2]].query():
+                return
+            self._pending.popleft()
+            for phase, a, b in laps:
+                _PHASES[phase][1]().observe(
+                    events[a].elapsed_time(events[b]) * 1e3)
+            self._free.append(events)
+
+    def _mark(self) -> None:
+        if self._device is None:
+            self._marks.append(time.perf_counter())
+        else:
+            self._events[len(self._marks)].record(self._stream)
+            self._marks.append(len(self._marks))
+
+    @contextlib.contextmanager
+    def phase(self, phase: str):
+        """Time the body as ``phase``."""
+        with _profiled(_PHASES[phase][0]):
+            if self._device is not None and self._events is None:
+                yield
+                return
+            if not self._marks:
+                self._mark()
+            yield
+            self._mark()
+            a, b = self._marks[-2:]
+            if self._device is None:
+                _PHASES[phase][1]().observe((b - a) * 1e6)
+            else:
+                self._laps.append((phase, a, b))
 
 
 class DataParallelModel:
@@ -51,6 +182,8 @@ class DataParallelModel:
     mesh = None
     # ranks that stepped on a batch in the last mesh step
     last_active = None
+    # made at the first step with telemetry on
+    _timer: Optional[_PhaseTimer] = None
 
     def _shard_loss(self, params, shard, rows_per_shard: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,6 +191,11 @@ class DataParallelModel:
 
     def _apply(self, params, grads, denom):
         raise NotImplementedError
+
+    def _phase(self, phase: str):
+        """The step's ``phase`` timed, when this step is."""
+        t = self._timer
+        return t.phase(phase) if t is not None and t.on else _NULL
 
     def _local(self, params, batch):
         """(loss_sum, weight_sum, grads) of this rank's batch."""
@@ -74,9 +212,11 @@ class DataParallelModel:
         shard = unpack_shard({k: v[0] for k, v in tree.items()})
         cls = type(params)
         leaves = [p.detach().requires_grad_(True) for p in params]
-        loss_sum, wsum = self._shard_loss(cls(*leaves), shard,
-                                          batch.rows_per_shard)
-        grads = torch.autograd.grad(loss_sum, leaves)
+        with self._phase("forward"):
+            loss_sum, wsum = self._shard_loss(cls(*leaves), shard,
+                                              batch.rows_per_shard)
+        with self._phase("backward"):
+            grads = torch.autograd.grad(loss_sum, leaves)
         return loss_sum.detach(), wsum.detach(), grads
 
     def _reduce(self, loss_sum, wsum, grads, active: float):
@@ -97,6 +237,22 @@ class DataParallelModel:
         loss).
         With a mesh, ``batch=None`` is the zero-weight step of a rank
         whose part ran out."""
+        if not telemetry.enabled():
+            return self._step(params, batch)
+        if self._timer is None:
+            self._timer = _PhaseTimer()
+        t0 = time.perf_counter()
+        with _profiled("dct.step"):
+            self._timer.begin(params[0].device)
+            try:
+                out = self._step(params, batch)
+            finally:
+                self._timer.end()
+        telemetry.histogram("step_host_us").observe(
+            (time.perf_counter() - t0) * 1e6)
+        return out
+
+    def _step(self, params, batch):
         cls = type(params)
         if batch is None:
             if self.mesh is None:
@@ -111,11 +267,12 @@ class DataParallelModel:
             loss_sum, wsum, grads = self._local(params, batch)
             active = 1.0
         if self.mesh is not None:
-            loss_sum, wsum, self.last_active, grads = self._reduce(
-                loss_sum, wsum, grads, active)
+            with self._phase("reduce"):
+                loss_sum, wsum, self.last_active, grads = self._reduce(
+                    loss_sum, wsum, grads, active)
             if self.last_active == 0:  # every rank is out of batches
                 return params, loss_sum
-        with torch.no_grad():
+        with torch.no_grad(), self._phase("update"):
             denom = torch.clamp(wsum, min=1.0)
             new = self._apply(cls(*(p.detach() for p in params)),
                               cls(*grads), denom)

@@ -30,8 +30,9 @@ they were written to guard:
    ``csrc/*.cu``'s ``extern "C"`` functions against
    ``ops/hopper_kernels.py``), with the compile-time struct layout probe;
    the metric catalog (the reference's ``doc/observability.md`` less
-   ``NO_COUNTERPART``) against the port's registrations and its
-   ``METRIC_HELP``, whose lines must equal the reference's; the env knobs
+   ``NO_COUNTERPART``, plus the port-only table of
+   ``doc/torch/observability.md``) against the port's registrations and
+   its ``METRIC_HELP``, whose lines must equal the reference's; the env knobs
    against ``doc/torch/parameters.md``, and the reference's knobs against
    what the port reads; the tracker's wire words. Escapes:
    ``# abi-ok: <reason>``, ``# contract-ok: <reason>``.
@@ -971,8 +972,8 @@ class ContractPass:
                             os.sep, "/")
                         self.md[rel] = _read(p)
             return
-        for rel in (contracts.REFERENCE_CATALOG, contracts.REFERENCE_KNOBS,
-                    contracts.PORT_KNOBS):
+        for rel in (contracts.REFERENCE_CATALOG, contracts.PORT_CATALOG,
+                    contracts.REFERENCE_KNOBS, contracts.PORT_KNOBS):
             p = os.path.join(self.base, rel)
             if os.path.exists(p):
                 self.md[rel] = _read(p)
@@ -1205,8 +1206,13 @@ class ContractPass:
         help_map = (None if help_text is None
                     else {k: ln for k, (_t, ln) in help_text.items()})
         catalog, cat_rel = {}, None
+        # the port-only table, by its path in both modes
+        port_rel = contracts.PORT_CATALOG
+        port_cat = (contracts.extract_doc_catalog(self.md[port_rel])
+                    if port_rel in self.md else {})
         for rel, text in sorted(self.md.items()):
-            if not self.fixture and rel != contracts.REFERENCE_CATALOG:
+            if rel == port_rel or (not self.fixture and
+                                   rel != contracts.REFERENCE_CATALOG):
                 continue
             c = contracts.extract_doc_catalog(text)
             if c:
@@ -1234,11 +1240,12 @@ class ContractPass:
                     skip_rel, skipped[name][1], "contract",
                     f"NO_COUNTERPART lists `{name}`, but the port "
                     f"registers it ({rel}:{line}) — drop the row")
-            if catalog and name not in catalog:
+            if catalog and name not in catalog and name not in port_cat:
+                also = f" and the {port_rel} table" if port_cat else ""
                 self.findings.add(
                     rel, line, "metric",
                     f"metric `{name}` is registered but missing from the "
-                    f"{cat_rel} catalog (undocumented metric)")
+                    f"{cat_rel} catalog{also} (undocumented metric)")
             if help_map is not None and name not in help_map:
                 self.findings.add(
                     rel, line, "metric",
@@ -1259,8 +1266,9 @@ class ContractPass:
                         f"metric `{name}` label keys diverge across "
                         f"halves: C++ {{{','.join(sorted(cu)) or ''}}} "
                         f"vs Python {{{','.join(sorted(pu)) or ''}}}")
-            if name in catalog:
-                doc = catalog[name]
+            doc, doc_rel = ((catalog[name], cat_rel) if name in catalog
+                            else (port_cat.get(name), port_rel))
+            if doc is not None:
                 known = [ks for ks in
                          (k for half in reg.labels.values()
                           for k in half)]
@@ -1271,7 +1279,7 @@ class ContractPass:
                             rel, line, "metric",
                             f"metric `{name}` label keys "
                             f"{{{','.join(sorted(union))}}} disagree "
-                            f"with the {cat_rel} catalog "
+                            f"with the {doc_rel} catalog "
                             f"{{{','.join(sorted(doc['labels']))}}}")
                 if doc["kind"] and doc["kind"] not in reg.kinds:
                     self.findings.add(
@@ -1287,6 +1295,18 @@ class ContractPass:
                     cat_rel, doc["line"], "metric",
                     f"`{name}` is documented in the catalog but no code "
                     f"registers it (documented-but-gone){why}")
+        for name, doc in sorted(port_cat.items()):
+            if name in catalog:
+                self.findings.add(
+                    port_rel, doc["line"], "metric",
+                    f"port-only row `{name}` names a metric of the "
+                    f"{cat_rel} catalog — the reference documents it; drop "
+                    f"the row")
+            elif name not in registry:
+                self.findings.add(
+                    port_rel, doc["line"], "metric",
+                    f"port-only row `{name}` is documented but no code "
+                    f"registers it (documented-but-gone)")
         if help_map is not None:
             for name, line in sorted(help_map.items()):
                 if name not in registry:

@@ -12,7 +12,8 @@ boundary:
 - the telemetry metric catalog: every metric the port or the native core
   registers needs a port ``METRIC_HELP`` line, word for word the
   reference's; the catalog is the reference's ``doc/observability.md``
-  less :data:`NO_COUNTERPART`;
+  less :data:`NO_COUNTERPART`, plus the port-only table of
+  ``doc/torch/observability.md`` (:data:`PORT_CATALOG`);
 - the ``DMLC_*``/``DCT_*`` env knobs the port reads, against the generated
   table in ``doc/torch/parameters.md``, and the reference's knobs, each
   read by the port too or listed in :data:`NO_COUNTERPART`;
@@ -60,6 +61,8 @@ ABI_BOUNDARIES = (
 # what the port is held to: the reference's catalog page, its METRIC_HELP
 # and its generated knob table (read as text, never imported)
 REFERENCE_CATALOG = "doc/observability.md"
+# the metrics the port alone registers: a table in the catalog's row format
+PORT_CATALOG = "doc/torch/observability.md"
 REFERENCE_HELP = "dmlc_core_tpu/telemetry.py"
 REFERENCE_KNOBS = "doc/parameters.md"
 PORT_KNOBS = "doc/torch/parameters.md"
@@ -791,6 +794,16 @@ def extract_doc_catalog(md_text):
             if name not in out:
                 out[name] = {"labels": labels, "kind": kind, "line": i}
     return out
+
+
+def port_only_metrics(base):
+    """Names of the port-only catalog (:data:`PORT_CATALOG`) of the
+    checkout at ``base``; empty when the page is missing."""
+    path = os.path.join(base, PORT_CATALOG)
+    if not os.path.exists(path):
+        return set()
+    with open(path) as f:
+        return set(extract_doc_catalog(f.read()))
 
 
 # ===========================================================================

@@ -276,6 +276,9 @@ def gen_index() -> str:
         "| [../observability.md](../observability.md) | the metric "
         "catalog the port's METRIC_HELP is held to (less the rows "
         "`qa/contracts.py` NO_COUNTERPART gives a reason for) |",
+        "| [observability.md](observability.md) | the port-only metrics "
+        "(the training step's phases, the host batch's padding, the epoch "
+        "turn), held to the same rules |",
         "| [../analysis.md](../analysis.md) | the analyzer's passes; the "
         "port's `qa/analyze.py` runs them over the port |",
         "",

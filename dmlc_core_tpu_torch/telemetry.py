@@ -797,8 +797,9 @@ def snapshot(native: Optional[bool] = None) -> dict:
 # the reference's catalog (doc/observability.md) less the rows the port has
 # no counterpart for (qa/contracts.py NO_COUNTERPART, each with its
 # reason), word for word except serve_forward_us (the port's forward is
-# eager, not jitted). `python -m dmlc_core_tpu_torch.qa.analyze` holds
-# this table to both.
+# eager, not jitted), then the port-only catalog (doc/torch/
+# observability.md). `python -m dmlc_core_tpu_torch.qa.analyze` holds
+# this table to both catalogs.
 METRIC_HELP: Dict[str, str] = {
     "io_requests_total": "HTTP requests sent",
     "io_retries_total": "backoff sleeps taken",
@@ -955,6 +956,27 @@ METRIC_HELP: Dict[str, str] = {
         "distinct padded (kind, rows, nnz) forward shapes this process",
     "serve_access_log_dropped_total":
         "access-log lines dropped by a contained I/O failure",
+    # port-only (doc/torch/observability.md): the training step's phases,
+    # the host batch's padding and the epoch turn
+    "step_forward_us":
+        "one step's forward (_shard_loss), stream time between markers "
+        "(us)",
+    "step_backward_us":
+        "one step's backward (autograd.grad), stream time between markers "
+        "(us)",
+    "step_reduce_us":
+        "one mesh step's gradient all_reduce (_reduce), stream time "
+        "between markers (us)",
+    "step_update_us":
+        "one step's parameter update (_apply), stream time between "
+        "markers (us)",
+    "step_host_us":
+        "one step issued on the caller's thread, no device wait (us)",
+    "device_batch_nnz": "useful nonzeros of one host CSR batch",
+    "device_batch_slots":
+        "nonzero slots of one host CSR batch (shards x nnz bucket)",
+    "device_epoch_turn_us":
+        "before_first() to the new epoch's first batch handed over (us)",
 }
 
 

@@ -7,7 +7,8 @@
   fixtures must pass against the port's tool.
 - Port-only fixtures: an ``extern "C"`` function of a ``.cu`` file
   against a binding row of the wrong arity, width or restype, and its
-  clean twin; the ``NO_COUNTERPART`` table's rules.
+  clean twin; the ``NO_COUNTERPART`` table's rules; the port-only
+  catalog's (``doc/torch/observability.md``) rules.
 - Repo mode: the analyzer reports 0 findings, both lints exit 0, and
   ``qa.gendoc`` regenerates ``doc/torch/`` byte for byte.
 - Proven red: on a copy of the port, the native core's sources and the
@@ -252,6 +253,80 @@ def test_no_counterpart_row_naming_no_catalog_metric_is_flagged(tmp_path):
     assert "`typo_totl` names no metric of the catalog" in out.stdout
 
 
+# ---------------------------------------------------------------------------
+# port-only fixtures: the port-only catalog (doc/torch/observability.md)
+# ---------------------------------------------------------------------------
+
+PORT_ROW = "    | `port_only_us` | histogram | a reading of the port alone |\n"
+
+
+def port_catalog_fixture(tmp_path, extra_rows=""):
+    """The NO_COUNTERPART fixture's tree, plus a metric the port alone
+    registers, its HELP line and, unless ``extra_rows`` is None, its row
+    in the port-only table (and ``extra_rows`` after it)."""
+    metric_fixture(tmp_path, """\
+        NO_COUNTERPART = {
+            "tpu_only_total": "the TPU's own plane",
+        }
+        """)
+    write_fixture(tmp_path, "help.py", """\
+        METRIC_HELP = {
+            "good_total": "ported",
+            "port_only_us": "a reading of the port alone",
+        }
+        """)
+    write_fixture(tmp_path, "code.py", """\
+        def run():
+            telemetry.counter("good_total").inc()
+            telemetry.histogram("port_only_us").observe(1)
+        """)
+    if extra_rows is not None:
+        (tmp_path / "doc" / "torch").mkdir(parents=True)
+        write_fixture(tmp_path, contracts.PORT_CATALOG, """\
+            # Port-only metrics
+
+            | metric | type | meaning |
+            |---|---|---|
+            """ + PORT_ROW + extra_rows)
+
+
+def test_port_only_row_documents_a_port_only_metric(tmp_path):
+    port_catalog_fixture(tmp_path)
+    out = run_analyze("--root", str(tmp_path))
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_port_only_metric_without_a_row_is_undocumented(tmp_path):
+    port_catalog_fixture(tmp_path, extra_rows=None)
+    out = run_analyze("--root", str(tmp_path))
+    assert out.returncode == 1, out.stdout + out.stderr
+    line = findings(out.stdout)[0]
+    assert line.startswith("code.py:") and "`port_only_us`" in line
+    assert "undocumented metric" in line
+
+
+def test_port_only_row_naming_a_reference_metric_is_flagged(tmp_path):
+    port_catalog_fixture(tmp_path,
+                         "    | `good_total` | counter | ported |\n")
+    out = run_analyze("--root", str(tmp_path))
+    assert out.returncode == 1, out.stdout + out.stderr
+    line = findings(out.stdout)[0]
+    assert line.startswith(contracts.PORT_CATALOG + ":6: [metric]")
+    assert "port-only row `good_total` names a metric of the obs.md " \
+        "catalog" in line
+
+
+def test_port_only_row_no_code_registers_is_flagged(tmp_path):
+    port_catalog_fixture(tmp_path,
+                         "    | `gone_us` | histogram | removed |\n")
+    out = run_analyze("--root", str(tmp_path))
+    assert out.returncode == 1, out.stdout + out.stderr
+    line = findings(out.stdout)[0]
+    assert line.startswith(contracts.PORT_CATALOG + ":6: [metric]")
+    assert "port-only row `gone_us` is documented but no code registers " \
+        "it (documented-but-gone)" in line
+
+
 def test_port_table_marker_parses_beside_the_references(tmp_path):
     # the reference's fixtures name scripts/contracts.py in the marker;
     # the port's generated table names its own module
@@ -382,6 +457,13 @@ def raw_num_worker_parse(root):
          'nworkers = int(os.environ["DMLC_NUM_WORKER"])')
 
 
+def drop_port_only_row(root):
+    text = (root / contracts.PORT_CATALOG).read_text()
+    (row,) = [ln for ln in text.splitlines(keepends=True)
+              if ln.startswith("| `step_host_us` |")]
+    (root / contracts.PORT_CATALOG).write_text(text.replace(row, ""))
+
+
 def reword_help_line(root):
     edit(root / TELEMETRY, '"rig_errors_total": "load-generator requests '
          'that failed"', '"rig_errors_total": "requests that failed"')
@@ -411,8 +493,13 @@ def test_unbroken_copy_is_clean(tmp_path):
     (reword_help_line,
      [(TELEMETRY, "metric", "METRIC_HELP `rig_errors_total` is "
        "'requests that failed' but the reference's")]),
+    (drop_port_only_row,
+     [("dmlc_core_tpu_torch/models/_dp.py", "metric",
+       "metric `step_host_us` is registered but missing from the "
+       "doc/observability.md catalog and the doc/torch/observability.md "
+       "table (undocumented metric)")]),
 ], ids=["kernel-argtype", "A4-parser-create", "A2-rig-help",
-        "A3-raw-env", "help-text"])
+        "A3-raw-env", "help-text", "port-only-row"])
 def test_broken_copy_is_red(tmp_path, breakage, want):
     copy_tree(tmp_path)
     breakage(tmp_path)
