@@ -1,0 +1,3 @@
+"""``step_device_ms`` in the DLRM-DCNv2 cell: the same reading."""
+
+from benchmark.metrics.step_device_ms import read  # noqa: F401

@@ -36,8 +36,16 @@ and read once done, never waited for (:class:`_PhaseTimer`). Stream time is
 the card's time only where the card sets the pace; where the host does,
 it reads the host's launch pace. While a profiler records, the step and
 its phases also run inside the ``record_function`` ranges ``dct.step``
-and ``dct.step.<phase>``. None of this launches work on the card or waits
-for it.
+and ``dct.step.<phase>``. A model may also time nested spans of its own
+(:attr:`DataParallelModel._SPANS`, entered with ``_span``): each takes its
+own start and end markers from the same set and its own histogram and
+range. None of this launches work on the card or waits for it.
+
+A model whose parameters carry optimizer state beside the weights names
+the leaves the step differentiates (``_differentiated``); the others reach
+``_apply`` with a ``None`` gradient. A leaf may get a sparse (row)
+gradient, as an embedding table's does; the mesh step all-reduces dense
+gradients of every leaf, so it refuses both.
 
 Subclasses implement:
   _shard_loss(params, shard, rows_per_shard) -> (loss_sum, weight_sum)
@@ -88,27 +96,31 @@ class _PhaseTimer:
 
     A phase runs from a marker to the next: the step's first phase takes
     its own start marker, and each later one starts at its predecessor's
-    end marker, since the step launches nothing between its phases. On
-    the CPU a marker is ``time.perf_counter()`` and a phase is observed as
-    it ends. On CUDA a marker is a timing event recorded on the current
-    stream, from a set of ``1 + len(_PHASES)`` that the step takes from a
-    pool of :attr:`POOL` sets made once. After the step is issued,
+    end marker, since the step launches nothing between its phases. A
+    nested span (``spans``: the model's :attr:`~DataParallelModel._SPANS`)
+    takes a start and an end marker of its own. On the CPU a marker is
+    ``time.perf_counter()`` and an interval is observed as it ends. On
+    CUDA a marker is a timing event recorded on the current stream, from a
+    set of ``1 + len(_PHASES) + 2 * len(spans)`` that the step takes from
+    a pool of :attr:`POOL` sets made once. After the step is issued,
     :meth:`end` resolves the pending sets in order, while the card runs
     that step: a set whose last event's ``query()`` says done is observed
     and goes back to the pool, and the first one still running ends the
-    pass. With no set free, a step goes untimed."""
+    pass. With no set free, a step goes untimed, and so does an interval
+    once the step's set is used up."""
 
     POOL = 8
 
-    def __init__(self):
+    def __init__(self, spans: Optional[dict] = None):
         self.on = False
+        self._size = 1 + len(_PHASES) + 2 * len(spans or ())
         self._device: Optional[torch.device] = None
         self._stream = None
         self._free: list = []
         self._pending: deque = deque()
         self._events: Optional[list] = None
         self._marks: list = []  # perf_counter readings, or event indices
-        self._laps: list = []   # (phase, start event, end event)
+        self._laps: list = []   # (histogram getter, start event, end event)
 
     def begin(self, device: torch.device) -> None:
         self.on = True
@@ -118,7 +130,7 @@ class _PhaseTimer:
             return
         if device != self._device:
             self._free = [[torch.cuda.Event(enable_timing=True)
-                           for _ in range(1 + len(_PHASES))]
+                           for _ in range(self._size)]
                           for _ in range(self.POOL)]
             self._pending.clear()
             self._device = device
@@ -145,34 +157,53 @@ class _PhaseTimer:
             if not events[laps[-1][2]].query():
                 return
             self._pending.popleft()
-            for phase, a, b in laps:
-                _PHASES[phase][1]().observe(
-                    events[a].elapsed_time(events[b]) * 1e3)
+            for hist, a, b in laps:
+                hist().observe(events[a].elapsed_time(events[b]) * 1e3)
             self._free.append(events)
 
-    def _mark(self) -> None:
+    def _timed(self) -> bool:
+        return self._device is None or self._events is not None
+
+    def _mark(self):
+        """A new marker (None once the step's set is used up)."""
         if self._device is None:
             self._marks.append(time.perf_counter())
-        else:
+        elif len(self._marks) < len(self._events):
             self._events[len(self._marks)].record(self._stream)
             self._marks.append(len(self._marks))
+        else:
+            return None
+        return self._marks[-1]
+
+    def _lap(self, hist, a, b) -> None:
+        if a is None or b is None:
+            return
+        if self._device is None:
+            hist().observe((b - a) * 1e6)
+        else:
+            self._laps.append((hist, a, b))
 
     @contextlib.contextmanager
     def phase(self, phase: str):
         """Time the body as ``phase``."""
         with _profiled(_PHASES[phase][0]):
-            if self._device is not None and self._events is None:
+            if not self._timed():
                 yield
                 return
-            if not self._marks:
-                self._mark()
+            a = self._marks[-1] if self._marks else self._mark()
             yield
-            self._mark()
-            a, b = self._marks[-2:]
-            if self._device is None:
-                _PHASES[phase][1]().observe((b - a) * 1e6)
-            else:
-                self._laps.append((phase, a, b))
+            self._lap(_PHASES[phase][1], a, self._mark())
+
+    @contextlib.contextmanager
+    def span(self, name: str, hist):
+        """Time the body, nested in a phase, into ``hist()``."""
+        with _profiled(name):
+            if not self._timed():
+                yield
+                return
+            a = self._mark()
+            yield
+            self._lap(hist, a, self._mark())
 
 
 class DataParallelModel:
@@ -184,6 +215,9 @@ class DataParallelModel:
     last_active = None
     # made at the first step with telemetry on
     _timer: Optional[_PhaseTimer] = None
+    # nested spans the model times: key -> (profiler range, histogram
+    # getter); a histogram registers at its first observation
+    _SPANS: dict = {}
 
     def _shard_loss(self, params, shard, rows_per_shard: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -192,10 +226,22 @@ class DataParallelModel:
     def _apply(self, params, grads, denom):
         raise NotImplementedError
 
+    def _differentiated(self, params) -> Tuple[bool, ...]:
+        """Which leaves of ``params`` the step differentiates; the others
+        (an optimizer's state) reach ``_apply`` with a None gradient."""
+        return (True,) * len(params)
+
     def _phase(self, phase: str):
         """The step's ``phase`` timed, when this step is."""
         t = self._timer
         return t.phase(phase) if t is not None and t.on else _NULL
+
+    def _span(self, key: str):
+        """The model's nested span ``key`` (:attr:`_SPANS`) timed, when
+        this step is."""
+        t = self._timer
+        return t.span(*self._SPANS[key]) if t is not None and t.on \
+            else _NULL
 
     def _local(self, params, batch):
         """(loss_sum, weight_sum, grads) of this rank's batch."""
@@ -211,17 +257,28 @@ class DataParallelModel:
                 f"build the batch with num_shards={n_dev}")
         shard = unpack_shard({k: v[0] for k, v in tree.items()})
         cls = type(params)
-        leaves = [p.detach().requires_grad_(True) for p in params]
+        wrt = self._differentiated(params)
+        leaves = [p.detach().requires_grad_(d) for p, d in zip(params, wrt)]
         with self._phase("forward"):
             loss_sum, wsum = self._shard_loss(cls(*leaves), shard,
                                               batch.rows_per_shard)
         with self._phase("backward"):
-            grads = torch.autograd.grad(loss_sum, leaves)
+            got = iter(torch.autograd.grad(
+                loss_sum, [p for p, d in zip(leaves, wrt) if d]))
+        grads = tuple(next(got) if d else None for d in wrt)
         return loss_sum.detach(), wsum.detach(), grads
 
     def _reduce(self, loss_sum, wsum, grads, active: float):
         """Sum (loss_sum, wsum, active, grads) over the mesh in one
-        all_reduce of one flat float32 buffer."""
+        all_reduce of one flat float32 buffer. Only dense gradients of
+        every leaf pack into it."""
+        if any(g is None or g.layout != torch.strided for g in grads):
+            raise ValueError(
+                f"{type(self).__name__} has row-sparse table gradients and "
+                f"optimizer state among its leaves; the mesh step "
+                f"all-reduces a dense gradient of every leaf, and a table "
+                f"sharded over the mesh's ranks is not implemented: step "
+                f"it on one device (mesh=None)")
         head = torch.stack([loss_sum.float(), wsum.float(),
                             torch.full_like(wsum, active,
                                             dtype=torch.float32)])
@@ -240,7 +297,7 @@ class DataParallelModel:
         if not telemetry.enabled():
             return self._step(params, batch)
         if self._timer is None:
-            self._timer = _PhaseTimer()
+            self._timer = _PhaseTimer(self._SPANS)
         t0 = time.perf_counter()
         with _profiled("dct.step"):
             self._timer.begin(params[0].device)
@@ -262,7 +319,8 @@ class DataParallelModel:
             zero = torch.zeros((), dtype=torch.float32,
                                device=params[0].device)
             loss_sum, wsum, active = zero, zero, 0.0
-            grads = tuple(torch.zeros_like(p) for p in params)
+            grads = tuple(torch.zeros_like(p) if d else None for p, d in
+                          zip(params, self._differentiated(params)))
         else:
             loss_sum, wsum, grads = self._local(params, batch)
             active = 1.0

@@ -43,7 +43,8 @@ MODULE_GROUPS = [
     ]),
     ("Ops, kernels & models", [
         "ops.sparse", "ops.attention", "ops.ranking", "ops.hopper_kernels",
-        "models.linear", "models.fm", "models.transformer",
+        "models.linear", "models.fm", "models.dlrm",
+        "models.transformer",
         "models.tp_transformer", "models.convert",
     ]),
     ("Parallelism & communication", [
@@ -278,7 +279,8 @@ def gen_index() -> str:
         "`qa/contracts.py` NO_COUNTERPART gives a reason for) |",
         "| [observability.md](observability.md) | the port-only metrics "
         "(the training step's phases, the host batch's padding, the epoch "
-        "turn), held to the same rules |",
+        "turn, DLRM-DCNv2's bags and cross network), held to the same "
+        "rules |",
         "| [../analysis.md](../analysis.md) | the analyzer's passes; the "
         "port's `qa/analyze.py` runs them over the port |",
         "",

@@ -977,6 +977,18 @@ METRIC_HELP: Dict[str, str] = {
         "nonzero slots of one host CSR batch (shards x nnz bucket)",
     "device_epoch_turn_us":
         "before_first() to the new epoch's first batch handed over (us)",
+    # port-only: DLRM-DCNv2's embedding bags and cross network
+    "dlrm_embed_us":
+        "one DLRM step's table lookup and bag pooling, stream time between "
+        "markers (us)",
+    "dlrm_cross_us":
+        "one DLRM step's cross network forward, stream time between "
+        "markers (us)",
+    "dlrm_embed_update_us":
+        "one DLRM step's row-wise Adagrad update of the distinct table "
+        "rows, stream time between markers (us)",
+    "dlrm_lookup_ids": "table ids one DLRM step looked up",
+    "dlrm_unique_rows": "distinct table rows one DLRM step updated",
 }
 
 
