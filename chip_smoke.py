@@ -828,8 +828,9 @@ def kernels_phase(extra_cases=()) -> dict:
             if name == "train_65536x28":
                 rec.update(yardsticks(r, c, v, R, F))
         results.append(rec)
-    emit({"phase": "kernels", "cases": results})
-    return {rec["case"]: rec for rec in results}
+    fm = fm_kernel_case()
+    emit({"phase": "kernels", "cases": results, "fm": fm})
+    return {**{rec["case"]: rec for rec in results}, "fm": fm}
 
 
 # -- phase 4: the main path --------------------------------------------------
@@ -1902,6 +1903,67 @@ def criteo_like(rows: int, seed: int, features: int = CRITEO_FEATURES):
     return labels, cols, vals
 
 
+def fm_kernel_case(rows: int = BATCH_ROWS, bucket: int = 1 << 22,
+                   features: int = CRITEO_FEATURES, k: int = FM_RANK) -> dict:
+    """The FM kernel pair (``hk.fm_csr_kernel``, csrc/fm_csr.cu) at the
+    ``criteo_fm.crec`` cell's batch: ``rows`` Criteo-shaped rows of 39
+    nonzeros in a ``bucket``-entry shard, padding at the tail. Its margins
+    and its gradients in b, w and v (of sum(g * margin) for a seeded g) are
+    held against the plain version on the card: rtol 1e-5, and atol 1e-5
+    of each output's largest magnitude, since both sum with atomics.
+    Times (``time_ms``): the forward alone, forward and backward, and the
+    plain version's forward and backward, which is the gather and
+    ``index_add_`` path the step took before the kernel; the bound is
+    ``benchmark/roofline.py::fm_step_cost``'s whole step."""
+    from benchmark import roofline
+    _, cols, vals = criteo_like(rows, seed=5, features=features)
+    nnz = cols.size
+    row = np.full(bucket, rows, np.int32)
+    row[:nnz] = np.repeat(np.arange(rows, dtype=np.int32), cols.shape[1])
+    col = np.zeros(bucket, np.int32)
+    col[:nnz] = cols.reshape(-1)
+    val = np.zeros(bucket, np.float32)
+    val[:nnz] = vals.reshape(-1)
+    rng = np.random.default_rng(6)
+    dev = torch.device("cuda")
+    b = torch.tensor(-1.2, device=dev)
+    w = torch.from_numpy(rng.normal(scale=0.1, size=features)
+                         .astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.normal(scale=0.01, size=(features, k))
+                         .astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=rows).astype(np.float32)).to(dev)
+    r, c, x = (torch.from_numpy(a).to(dev) for a in (row, col, val))
+
+    def fwd_bwd(fn):
+        leaves = [t.detach().requires_grad_(True) for t in (b, w, v)]
+        m = fn(*leaves, r, c, x, rows)
+        return [m.detach()] + list(torch.autograd.grad((m * g).sum(),
+                                                       leaves))
+
+    got, want = fwd_bwd(hk.fm_csr_kernel), fwd_bwd(hk.fm_csr_reference)
+    rec = {"case": "fm_train_65536x39", "rows": rows, "nnz": nnz,
+           "bucket": bucket, "features": features, "k": k}
+    for name, a, e in zip(("margin", "grad_b", "grad_w", "grad_v"), got,
+                          want):
+        scale = float(e.abs().max())
+        err = float((a - e).abs().max())
+        rec[name + "_max_abs_err"] = err
+        require(torch.allclose(a, e, rtol=1e-5, atol=1e-5 * scale),
+                "fm kernel disagrees with its plain version", output=name,
+                max_abs_err=err, scale=scale)
+    with torch.no_grad():
+        rec["kernel_forward_ms"] = time_ms(
+            lambda: hk.fm_csr_kernel(b, w, v, r, c, x, rows))
+    rec["kernel_ms"] = time_ms(lambda: fwd_bwd(hk.fm_csr_kernel))
+    rec["plain_ms"] = time_ms(lambda: fwd_bwd(hk.fm_csr_reference))
+    distinct = int(np.unique(cols).size)
+    bound_s, by = roofline.bound_s(*roofline.fm_step_cost(rows, nnz,
+                                                          distinct, k))
+    rec.update(distinct_cols=distinct, bound_ms=bound_s * 1e3, bound_by=by,
+               bound_share=bound_s * 1e3 / rec["kernel_ms"])
+    return rec
+
+
 def write_criteo_like(path: str, rows: int, seed: int,
                       features: int = CRITEO_FEATURES) -> None:
     """The rows of :func:`criteo_like` as a libfm file, every token fixed
@@ -2005,9 +2067,17 @@ def fm_phase(workdir: str, data: dict, device: str = "cuda",
     uri = path + "?format=libfm"
     init = FMLearner(features, k=FM_RANK, device="cpu").init(seed=0)
     fm_epoch(uri, init, device, batch_rows, features, max_steps=1)  # warm-up
+    # the FM kernel's launches on the main path's epoch alone: a forward
+    # and a backward a step
+    hk.reset_launch_counts()
     run = fm_epoch(uri, init, device, batch_rows, features,
                    snapshot_at=cpu_steps)
+    launches = {k: fn.launches for k, fn in hk.KERNELS.items()}
     steps = -(-rows // batch_rows)
+    require(launches["fm_csr"] == (2 * steps if device == "cuda" else 0)
+            and launches["csr_to_dense"] == 0,
+            "fm kernel launches on the main path", steps=steps,
+            launches=launches)
     trained = fm_params_to_numpy(run["params"])
     require(len(run["losses"]) == steps and run["rows"] == rows
             and np.all(np.isfinite(run["losses"]))
@@ -2051,7 +2121,10 @@ def fm_phase(workdir: str, data: dict, device: str = "cuda",
     with device_iter.DeviceRowBlockIter(data["text"], batch_rows=batch_rows,
                                         layout="csr", csr_val_dtype="bf16",
                                         device=device) as it:
-        csr_m = dense_learner.predict(small_p, next(iter(it)))
+        batch = next(iter(it))
+        hk.reset_launch_counts()
+        csr_m = dense_learner.predict(small_p, batch)
+        predict_launches = hk.fm_csr_kernel.launches
     dense_gap = float((dense_m - csr_m).abs().max())
     # rtol 1e-5, and atol 1e-5 for margins near 0: the two sum 28-term
     # products in other orders, whose f32 error reaches about
@@ -2076,7 +2149,14 @@ def fm_phase(workdir: str, data: dict, device: str = "cuda",
     require({t.device.type for t in model.params} == {device},
             "served FM off device")
     row = np.repeat(np.arange(FM_HELD_OUT), np.diff(offset))
+    hk.reset_launch_counts()
     scores = model.scores(row, col, val, FM_HELD_OUT)
+    serve_launches = hk.fm_csr_kernel.launches
+    # one forward each for the CSR predict and the served batch
+    require(predict_launches == serve_launches
+            == (1 if device == "cuda" else 0),
+            "fm kernel launches in predict and serve",
+            predict=predict_launches, serve=serve_launches)
     want64 = 1 / (1 + np.exp(-fm_margin_f64(trained, offset, col, val)))
     serve_err = float(np.max(np.abs(scores - want64)))
     require(scores.shape == (FM_HELD_OUT,) and np.all(np.isfinite(scores))
@@ -2096,7 +2176,9 @@ def fm_phase(workdir: str, data: dict, device: str = "cuda",
                                         "atol": FM_V_ATOL},
            "dense_vs_csr_margin_max_abs": dense_gap,
            "serve": {"rows": FM_HELD_OUT, "max_abs_err_vs_f64": serve_err,
-                     "model_device": device}}
+                     "model_device": device},
+           "launches": launches, "predict_launches": predict_launches,
+           "serve_launches": serve_launches}
     emit(out)
     return out
 
@@ -3970,6 +4052,7 @@ def main() -> int:
         surface = surface_phase(data["text"])
         qa_phase()
         cases = kernels_phase([crec_kernel_case(data["crec"])])
+        fm_case = cases.pop("fm")
         run, params = train_phase(data["text"])
         tel = telemetry_phase(data["text"], run["losses"], workdir)
         serve_phase(workdir, params)
@@ -3977,7 +4060,7 @@ def main() -> int:
                                    "w": params.w.cpu().numpy(),
                                    "b": float(params.b)})
         host = host_phase(data)
-        fm_phase(workdir, data)
+        fm = fm_phase(workdir, data)
         rank_phase(workdir, data)
         dp = dp_phase(workdir, data, run, params)
         job = job_phase(workdir, data)
@@ -4003,7 +4086,15 @@ def main() -> int:
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_us"] / 1e3,
         "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]})
+        "library_ms": main_case["library_ms"]}, {
+        "name": "fm_csr", "route": "cuda",
+        "source": "dmlc_core_tpu_torch/csrc/fm_csr.cu", "replaces": None,
+        # the main path's epoch: forward and backward each count a launch
+        "launches": fm["launches"]["fm_csr"],
+        "predict_launches": fm["predict_launches"],
+        "serve_launches": fm["serve_launches"],
+        "ms": fm_case["kernel_ms"], "plain_ms": fm_case["plain_ms"],
+        "bound_ms": fm_case["bound_ms"], "bound_by": fm_case["bound_by"]}]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -78,6 +78,8 @@ from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.base import DMLCError, resolve_device
 from dmlc_core_tpu_torch.device.sharding import (check_mesh,
                                                  local_device_count)
+from dmlc_core_tpu_torch.io.crec_map import (BufferState,
+                                             MappedCsrRecBatcher, mappable)
 from dmlc_core_tpu_torch.io.native import (BF16_STORAGE, NativeBatcher,
                                            NativeCsrRecBatcher,
                                            NativeDenseRecBatcher,
@@ -861,21 +863,41 @@ class CsrRecHostBatcher:
     col/val/row-length planes in device layout, so a batch is bulk memcpy
     plus row-id expansion straight into the packs, in one GIL-free native
     pass. The per-shard nnz bucket is static for the epoch (the file's
-    window table bounds it). Emits the text CSR lane's PaddedBatch."""
+    window table bounds it). Emits the text CSR lane's PaddedBatch.
+
+    A local file, whole or a part of it, is read in place from a read-only
+    mapping (:class:`~dmlc_core_tpu_torch.io.crec_map.MappedCsrRecBatcher`),
+    and a pooled buffer's padding and row ids are written again only where
+    its previous fill left other values; any other URI (a list, a
+    directory, a remote store, a ``#`` chunk cache) takes the shared
+    core's fill (:class:`~dmlc_core_tpu_torch.io.native.NativeCsrRecBatcher`).
+    Both give the same planes, bit for bit. With telemetry on, the padding
+    entries each fill wrote are counted (``crec_pad_entries_written``)."""
 
     def __init__(self, uri: str, part: int = 0, npart: int = 1,
                  batch_rows: int = 65536, num_shards: int = 1,
                  min_nnz_bucket: int = 4096, pin: bool = False):
         _check_shards(batch_rows, num_shards)
-        self._b = NativeCsrRecBatcher(uri, part=part, npart=npart,
-                                      batch_rows=batch_rows,
-                                      num_shards=num_shards,
-                                      min_nnz_bucket=min_nnz_bucket)
+        path = mappable(uri)
+        self._mapped = path is not None
+        if self._mapped:
+            self._b = MappedCsrRecBatcher(path, part=part, npart=npart,
+                                          batch_rows=batch_rows,
+                                          num_shards=num_shards,
+                                          min_nnz_bucket=min_nnz_bucket)
+        else:
+            self._b = NativeCsrRecBatcher(uri, part=part, npart=npart,
+                                          batch_rows=batch_rows,
+                                          num_shards=num_shards,
+                                          min_nnz_bucket=min_nnz_bucket)
         self.batch_rows = batch_rows
         self.num_shards = num_shards
         self.pin = pin
         self._meta = None
         self._pool = _HostBufferPool()
+        # id(big) -> (weakref to big, its BufferState): what a refill of
+        # that buffer need not write again; dropped with the buffer
+        self._held: Dict[int, tuple] = {}
 
     def recycle(self, batch) -> None:
         """Return a consumed host batch's buffers for reuse (the contract
@@ -884,6 +906,20 @@ class CsrRecHostBatcher:
             return
         self._pool.put(("crec", batch.big.shape[-1]),
                        (batch.big, batch.aux, batch.nrows))
+
+    def _buffer_state(self, big: np.ndarray, bucket: int) -> BufferState:
+        """What ``big`` holds from its last fill (nothing for a fresh
+        buffer)."""
+        known = self._held.get(id(big))
+        if known is not None and known[0]() is big:
+            return known[1]
+        state = BufferState(self.num_shards,
+                            self.batch_rows // self.num_shards, bucket)
+        self._held[id(big)] = (
+            weakref.ref(big, lambda _r, held=self._held, key=id(big):
+                        held.pop(key, None)),
+            state)
+        return state
 
     def next_batch(self) -> Optional[PaddedBatch]:
         """The next static-shape host batch (None at end)."""
@@ -901,9 +937,19 @@ class CsrRecHostBatcher:
             aux = _aligned_empty((D, 4 if has_qid else 3, R), np.int32,
                                  pin=self.pin)
             nrows = np.empty(D, np.int32)
-        take = self._b.fill_packed(big, aux, nrows)
+        if self._mapped:
+            take, pad = self._b.fill_packed(
+                big, aux, nrows, self._buffer_state(big, bucket))
+        else:  # the shared fill pads every shard's whole tail
+            take = self._b.fill_packed(big, aux, nrows)
+            pad = None
         if take == 0:
             return None
+        if telemetry.enabled():
+            if pad is None:
+                pad = sum(bucket - int(np.searchsorted(
+                    plane, plane.dtype.type(R))) for plane in big[:, 0])
+            telemetry.counter("crec_pad_entries_written").inc(pad)
         row, col, val, field = _view_big(big)
         _, label, weight, qid = _view_aux(aux)
         return PaddedBatch(row=row, col=col, val=val, label=label,

@@ -4,9 +4,16 @@ Margin (Rendle's O(NNZ·K) identity):
 
     y(x) = b + Σ_i w_i x_i + ½ Σ_f [ (Σ_i V_{i,f} x_i)² − Σ_i V_{i,f}² x_i² ]
 
-CSR shards compute the two inner sums with one gather ``V[col]`` and two
-segment-sums over the row ids, the layout of ``ops/sparse.py``; padding
-nonzeros (value 0, row id == num_rows) vanish. Dense batches compute them
+CSR shards go to ``ops/hopper_kernels.py::fm_csr_kernel``: on the card
+its hand-written kernel pair (``csrc/fm_csr.cu``), for any rank, walks
+each row's own nonzeros of the row plane and never the padding (row id ==
+num_rows) when the rows are in order with the padding at the tail, as
+every batcher lays them out, and adds nonzero by nonzero, with the same
+result, when they are not; on the CPU its plain version computes the two inner sums with
+one gather ``V[col]`` and two segment-sums over the row ids, the layout of
+``ops/sparse.py``, where the padding (value 0) vanishes. With telemetry
+on, the learner counts each shard whose margin took the kernel
+(``fm_kernel_steps``), on the host. Dense batches compute them
 as ``x @ V`` and ``x² @ V²``, two plain matrix products. The loss is the
 shared ``objective_loss`` (logistic, squared, pairwise), and the update is
 SGD with decoupled L2 on ``w`` and ``v``. The scoring server's ``fm`` kind
@@ -19,13 +26,14 @@ from typing import NamedTuple
 
 import torch
 
+from dmlc_core_tpu_torch import telemetry
 from dmlc_core_tpu_torch.base import resolve_device
 from dmlc_core_tpu_torch.device.device_iter import (to_device_batch,
                                                     unpack_tree)
 from dmlc_core_tpu_torch.device.sharding import check_mesh
 from dmlc_core_tpu_torch.models._dp import DataParallelModel
 from dmlc_core_tpu_torch.models.linear import objective_loss
-from dmlc_core_tpu_torch.ops.sparse import _segment_sum, csr_matvec
+from dmlc_core_tpu_torch.ops.hopper_kernels import fm_csr_kernel
 
 __all__ = ["FMParams", "FMLearner"]
 
@@ -38,13 +46,13 @@ class FMParams(NamedTuple):
 
 def _fm_margin_csr(params: FMParams, row: torch.Tensor, col: torch.Tensor,
                    val: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """FM margins [num_rows] of one CSR shard."""
-    linear = csr_matvec(row, col, val, params.w, num_rows)
-    vx = params.v.index_select(0, col) * val[:, None]   # [NNZ, K]
-    s1 = _segment_sum(vx, row, num_rows)                # Σ V x   [R, K]
-    s2 = _segment_sum(vx * vx, row, num_rows)           # Σ V²x²  [R, K]
-    inter = 0.5 * torch.sum(s1 * s1 - s2, dim=-1)
-    return params.b + linear + inter
+    """FM margins [num_rows] of one CSR shard, in the kernel's types:
+    int64 ids (below 2^31) and bf16 values are cast to int32 and float32,
+    which changes no value."""
+    return fm_csr_kernel(params.b, params.w, params.v,
+                         row.to(torch.int32).contiguous(),
+                         col.to(torch.int32).contiguous(),
+                         val.float().contiguous(), num_rows)
 
 
 def _fm_margin_dense(params: FMParams, x: torch.Tensor) -> torch.Tensor:
@@ -60,6 +68,8 @@ def _fm_margin_dense(params: FMParams, x: torch.Tensor) -> torch.Tensor:
 def _margin(params: FMParams, shard, num_rows: int) -> torch.Tensor:
     if "x" in shard:
         return _fm_margin_dense(params, shard["x"])
+    if params.v.is_cuda and telemetry.enabled():
+        telemetry.counter("fm_kernel_steps").inc()
     return _fm_margin_csr(params, shard["row"], shard["col"], shard["val"],
                           num_rows)
 

@@ -2,9 +2,9 @@
 
 Counterparts of the repo's ``scripts/srcwalk.py``, ``lint.py``,
 ``contracts.py``, ``analyze.py`` and ``gendoc.py``, pointed at
-``dmlc_core_tpu_torch/``, the port's tests, ``chip_smoke.py`` and the two C
-boundaries the port binds with ctypes (``cpp/src/capi.cc`` and
-``csrc/*.cu``)::
+``dmlc_core_tpu_torch/``, the port's tests, ``chip_smoke.py`` and the three C
+boundaries the port binds with ctypes (``cpp/src/capi.cc``, ``csrc/*.cu``
+and ``csrc/*.cc``)::
 
     python -m dmlc_core_tpu_torch.qa.lint      # exit 0 when clean
     python -m dmlc_core_tpu_torch.qa.analyze   # exit code = finding count

@@ -25,10 +25,11 @@ they were written to guard:
    ``// fs-ok:``), and no runtime ``assert`` in ``tracker``, ``data``,
    ``io`` and ``serving`` (``# assert-ok: <reason>``).
 
-4. **Cross-boundary contracts** (:mod:`.contracts`): the port's two C
-   boundaries (``cpp/src/capi.cc`` against ``io/native.py``, and
+4. **Cross-boundary contracts** (:mod:`.contracts`): the port's three C
+   boundaries (``cpp/src/capi.cc`` against ``io/native.py``,
    ``csrc/*.cu``'s ``extern "C"`` functions against
-   ``ops/hopper_kernels.py``), with the compile-time struct layout probe;
+   ``ops/hopper_kernels.py``, and ``csrc/*.cc``'s against
+   ``io/crec_map.py``), with the compile-time struct layout probe;
    the metric catalog (the reference's ``doc/observability.md`` less
    ``NO_COUNTERPART``, plus the port-only table of
    ``doc/torch/observability.md``) against the port's registrations and
@@ -48,6 +49,7 @@ scope for every pass, as the reference's ``--root`` does.
 
 import argparse
 import ast
+import fnmatch
 import os
 import re
 import sys
@@ -1018,8 +1020,7 @@ class ContractPass:
             return
         for c_src, py_rel in contracts.ABI_BOUNDARIES:
             c_rels = sorted(r for r in self.cpp
-                            if r == c_src or (c_src.endswith("/")
-                                              and r.startswith(c_src)))
+                            if fnmatch.fnmatchcase(r, c_src))
             if not c_rels or py_rel not in self.py:
                 self.findings.add(
                     py_rel if not c_rels else c_src, 1, "abi",

@@ -5,10 +5,11 @@ re-scoped to ``dmlc_core_tpu_torch/``).
 The port keeps these hand-written contracts across a language or package
 boundary:
 
-- two C ABIs mirrored by ctypes: the native core's ``cpp/src/capi.cc``
-  against ``dmlc_core_tpu_torch/io/native.py``'s table, and every
+- three C ABIs mirrored by ctypes: the native core's ``cpp/src/capi.cc``
+  against ``dmlc_core_tpu_torch/io/native.py``'s table, every
   ``extern "C"`` function of ``dmlc_core_tpu_torch/csrc/*.cu`` against
-  ``ops/hopper_kernels.py``'s table (:data:`ABI_BOUNDARIES`);
+  ``ops/hopper_kernels.py``'s table, and those of ``csrc/*.cc`` against
+  ``io/crec_map.py``'s (:data:`ABI_BOUNDARIES`);
 - the telemetry metric catalog: every metric the port or the native core
   registers needs a port ``METRIC_HELP`` line, word for word the
   reference's; the catalog is the reference's ``doc/observability.md``
@@ -50,12 +51,13 @@ from dmlc_core_tpu_torch.qa.srcwalk import (iter_sources,  # noqa: E402
 CODE_SCOPE = ("dmlc_core_tpu_torch/", "cpp/src/", "chip_smoke.py")
 NATIVE_SRC = "cpp/src"
 
-# the C boundaries: (C sources, a file or a directory prefix; the module
-# holding the ctypes table)
+# the C boundaries: (C sources, a file or a glob; the module holding the
+# ctypes table)
 ABI_BOUNDARIES = (
     ("cpp/src/capi.cc", "dmlc_core_tpu_torch/io/native.py"),
-    ("dmlc_core_tpu_torch/csrc/",
+    ("dmlc_core_tpu_torch/csrc/*.cu",
      "dmlc_core_tpu_torch/ops/hopper_kernels.py"),
+    ("dmlc_core_tpu_torch/csrc/*.cc", "dmlc_core_tpu_torch/io/crec_map.py"),
 )
 
 # what the port is held to: the reference's catalog page, its METRIC_HELP

@@ -36,7 +36,7 @@ MODULE_GROUPS = [
         "base", "params", "registry", "config", "serializer", "telemetry",
     ]),
     ("Data & I/O", [
-        "data", "io.native", "io.convert", "io.tls_proxy",
+        "data", "io.native", "io.crec_map", "io.convert", "io.tls_proxy",
     ]),
     ("CUDA device bridge", [
         "device.device_iter", "device.sharding",

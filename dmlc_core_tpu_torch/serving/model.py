@@ -178,9 +178,12 @@ class ScoringModel:
         """Scores for one padded batch: ``sigmoid(margin)`` for the
         logistic objective, the raw margin otherwise, as a numpy array.
         ``row`` entries equal to ``num_rows`` are padding (the spare
-        segment); feature ids outside ``[0, num_features)`` are masked to
-        zero weight on the host before the device sees them (a clamped
-        gather would credit them to feature 0). The arrays go to the
+        segment), and the entries may come in any order (the ``fm``
+        kind's kernel is fastest with rows ascending and the padding at
+        the tail, as the server batches them); feature ids outside
+        ``[0, num_features)`` are masked to zero weight on the host before
+        the device sees them (a clamped gather would credit them to
+        feature 0). The arrays go to the
         device as int32/int32/float32."""
         col = np.asarray(col, dtype=np.int32)
         val = np.asarray(val, dtype=np.float32)

@@ -989,6 +989,10 @@ METRIC_HELP: Dict[str, str] = {
         "rows, stream time between markers (us)",
     "dlrm_lookup_ids": "table ids one DLRM step looked up",
     "dlrm_unique_rows": "distinct table rows one DLRM step updated",
+    # port-only: the FM kernel's engagement and the .crec fill's padding
+    "fm_kernel_steps": "FM learner shards whose margin took the FM kernel",
+    "crec_pad_entries_written":
+        "padding entries the .crec fills wrote into host batch buffers",
 }
 
 

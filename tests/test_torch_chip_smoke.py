@@ -103,7 +103,7 @@ def test_serve_phase_rehearsal_on_cpu(tmp_path, monkeypatch):
     assert lane["drain_exit"] == 0
     for name in ("serve_forward_us", "serve_parse_us", "serve_request_us"):
         assert lane["server_us"][name]["count"] > 0
-    assert out["launches"] == {"csr_to_dense": 0}
+    assert out["launches"] == {"csr_to_dense": 0, "fm_csr": 0}
 
 
 def test_lane_payloads_match_the_reference_generator():
@@ -212,10 +212,13 @@ def test_new_phases_rehearsal_on_cpu(tmp_path, one_thread):
                                    "text_csr_bf16_values"}
     assert lanes["lanes"]["recd"]["losses"] == \
         lanes["lanes"]["text_dense_bf16"]["losses"]
-    assert lanes["launches"] == {"csr_to_dense": 0}  # CPU: plain version
+    # CPU: plain versions
+    assert lanes["launches"] == {"csr_to_dense": 0, "fm_csr": 0}
     assert 0 < lanes["gaps"]["bf16_values_vs_f32_loss_max_rel"] < 1e-3
     fm = cs.fm_phase(wd, data, device="cpu", rows=2048, batch_rows=1024)
     assert fm["features"] == 1 << 20 and fm["fields"] == 39
+    assert fm["launches"] == {"csr_to_dense": 0, "fm_csr": 0}
+    assert fm["predict_launches"] == fm["serve_launches"] == 0
     assert fm["nnz_bucket"] == 65536  # 1024 x 39 nonzeros, next power of 2
     assert fm["losses"][-1] < fm["losses"][0]
     assert fm["serve"]["max_abs_err_vs_f64"] <= 1e-5
@@ -234,7 +237,8 @@ def test_host_phase_rehearsal_on_cpu(tmp_path, one_thread):
     host = cs.host_phase(data, device="cpu", batch_rows=1024)
     assert set(host["lanes"]) == {"text", "crec"}
     assert host["steps"] == 4 and len(host["losses"]) == 4
-    assert host["launches"] == {"csr_to_dense": 0}  # CPU: plain version
+    # CPU: plain versions
+    assert host["launches"] == {"csr_to_dense": 0, "fm_csr": 0}
     assert host["gaps"]["host_vs_device_batches"]["loss_max_rel"] == 0.0
     assert host["bench_trees"]["replay_first_pass_batches"] == 4
     assert os.environ["DCT_CSR_TO_DENSE"] == "pallas"

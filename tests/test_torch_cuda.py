@@ -98,6 +98,113 @@ def test_kernel_refuses_bad_inputs(cuda_device):
     assert empty.shape == (3, 2) and float(empty.abs().sum()) == 0.0
 
 
+# -- the FM kernel pair (csrc/fm_csr.cu) ---------------------------------------
+def fm_shard(rng, lengths, F, bucket, repeat=False):
+    """A sorted CSR shard: row r holds lengths[r] nonzeros, the padding
+    (row R, col 0, val 0) fills the bucket's tail. ``repeat``: each row's
+    first column appears twice in it. Columns 0-3 recur in every row."""
+    R = len(lengths)
+    cols = []
+    for n in lengths:
+        c = list(rng.integers(0, F, n))
+        c[:min(n, 4)] = range(min(n, 4))
+        if repeat and n >= 2:
+            c[1] = c[0]
+        cols.extend(c)
+    nnz = len(cols)
+    row = np.full(bucket, R, np.int32)
+    row[:nnz] = np.repeat(np.arange(R), lengths)
+    col = np.zeros(bucket, np.int32)
+    col[:nnz] = cols
+    val = np.zeros(bucket, np.float32)
+    val[:nnz] = rng.normal(size=nnz)
+    return row, col, val
+
+
+def fm_margin_and_grads(fn, b, w, v, row, col, val, R, g):
+    """fn's margins and the gradients of sum(g * margin) in b, w, v."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (b, w, v)]
+    m = fn(*leaves, row, col, val, R)
+    grads = torch.autograd.grad((m * g).sum(), leaves)
+    return [m.detach()] + list(grads)
+
+
+@pytest.mark.parametrize("R,F,K,per_row,bucket,case", [
+    (64, 50, 8, 5, 512, "plain"), (300, 1000, 4, 9, 4096, "empty_rows"),
+    (128, 40, 3, 7, 1024, "repeat"), (77, 20, 16, 3, 256, "plain"),
+    (33, 100, 64, 12, 512, "plain"), (16, 30, 8, 0, 64, "all_padding"),
+    (4096, 1 << 16, 8, 39, 1 << 18, "plain"), (50, 60, 96, 6, 512, "plain"),
+    (40, 70, 65, 5, 512, "repeat"), (64, 200, 128, 9, 1024, "plain"),
+    (200, 300, 8, 7, 4096, "out_of_order"),
+    (100, 80, 96, 5, 1024, "out_of_order")])
+def test_fm_kernel_matches_plain_version(cuda_device, R, F, K, per_row,
+                                         bucket, case):
+    rng = np.random.default_rng(R + K)
+    lengths = rng.integers(0, 2 * per_row + 1, R)
+    if case == "empty_rows":
+        lengths[R // 3:R // 2] = 0
+    if case == "all_padding":
+        lengths[:] = 0
+    row, col, val = fm_shard(rng, lengths, F, bucket,
+                             repeat=case == "repeat")
+    if case == "out_of_order":  # rows and padding shuffled together
+        order = rng.permutation(bucket)
+        row, col, val = row[order], col[order], val[order]
+    b = torch.tensor(0.3)
+    w = torch.from_numpy(rng.normal(size=F).astype(np.float32))
+    v = torch.from_numpy(0.3 * rng.normal(size=(F, K)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=R).astype(np.float32))
+    host = [b, w, v] + [torch.from_numpy(a) for a in (row, col, val)]
+    dev = [t.to(cuda_device) for t in host]
+    before = hk.fm_csr_kernel.launches
+    got = fm_margin_and_grads(hk.fm_csr_kernel, *dev[:6], R,
+                              g.to(cuda_device))
+    torch.cuda.synchronize()
+    assert hk.fm_csr_kernel.launches == before + 2  # forward, backward
+    want = fm_margin_and_grads(hk.fm_csr_reference, *dev[:6], R,
+                               g.to(cuda_device))
+    cpu = fm_margin_and_grads(hk.fm_csr_kernel, *host[:6], R, g)
+    for name, a, b_, c in zip(("margin", "b", "w", "v"), got, want, cpu):
+        scale = float(c.abs().max()) or 1.0
+        tol = dict(rtol=1e-5, atol=1e-5 * scale)
+        torch.testing.assert_close(a.cpu(), c, **tol, msg=name)
+        torch.testing.assert_close(a, b_, **tol, msg=name)
+
+
+def test_fm_kernel_drops_out_of_range_columns(cuda_device):
+    rng = np.random.default_rng(5)
+    row, col, val = fm_shard(rng, np.full(32, 6), 20, 256)
+    bad = col.copy()
+    bad[1::7] = 20 + np.arange(len(bad[1::7]))  # past the last feature
+    kept = np.where(bad < 20, val, 0).astype(np.float32)
+    w = torch.from_numpy(rng.normal(size=20).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(20, 8)).astype(np.float32))
+    args = [torch.tensor(0.0), w, v]
+    got = hk.fm_csr_kernel(*[t.to(cuda_device) for t in args + [
+        torch.from_numpy(a) for a in (row, bad, val)]], 32)
+    want = hk.fm_csr_reference(*args + [torch.from_numpy(a) for a in (
+        row, np.where(bad < 20, bad, 0).astype(np.int32), kept)], 32)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_fm_kernel_refuses_bad_inputs(cuda_device):
+    d = cuda_device
+    b, w, v = (torch.zeros((), device=d), torch.zeros(8, device=d),
+               torch.zeros((8, 4), device=d))
+    r = torch.zeros(6, dtype=torch.int32, device=d)
+    x = torch.zeros(6, device=d)
+    with pytest.raises(DMLCError, match="int32"):
+        hk.fm_csr_kernel(b, w, v, r.long(), r, x, 2)
+    with pytest.raises(DMLCError, match="one CUDA device"):
+        hk.fm_csr_kernel(b, w, v, r, r.cpu(), x, 2)
+    with pytest.raises(DMLCError, match="contiguous"):
+        hk.fm_csr_kernel(b, w, v, r.repeat(2)[::2], r, x, 2)
+    with pytest.raises(DMLCError, match="factor"):
+        hk.fm_csr_kernel(b, torch.zeros(8, device=d),
+                         torch.zeros((8, 0), device=d), r, r, x, 2)
+    assert hk.fm_csr_kernel(b, w, v, r, r, x, 0).shape == (0,)
+
+
 def padded(rng, lengths, F):
     """Rows in order with ``lengths[r]`` distinct columns each (ascending,
     as a libsvm line lists them), then padding (row == R, value 3.0) up to
@@ -379,6 +486,21 @@ def test_fm_steps_on_cuda_match_cpu(cuda_device, tmp_path, layout):
         return FMLearner(9, k=4, learning_rate=0.5, device=device)
     want = steps_on("cpu", path, learner, init, layout)
     got = steps_on("cuda", path, learner, init, layout)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    for g, w in zip(got[1], want[1]):  # b, w, v
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7)
+
+
+def test_fm_rank_96_steps_on_cuda_match_cpu(cuda_device, tmp_path):
+    # a rank above the kernels' 64-factor register tile: two factor tiles
+    from dmlc_core_tpu_torch.models.fm import FMLearner
+    path = write_libsvm(tmp_path / "f.libsvm", seed=17)
+    init = FMLearner(9, k=96, init_scale=0.3, device="cpu").init(seed=3)
+
+    def learner(device):
+        return FMLearner(9, k=96, learning_rate=0.5, device=device)
+    want = steps_on("cpu", path, learner, init, "csr")
+    got = steps_on("cuda", path, learner, init, "csr")
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
     for g, w in zip(got[1], want[1]):  # b, w, v
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7)

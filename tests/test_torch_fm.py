@@ -57,11 +57,11 @@ def write_libfm(path, rows=512, seed=0, fields=False):
     return str(path)
 
 
-def start_params(seed=1, scale=0.3):
+def start_params(seed=1, scale=0.3, k=K):
     rng = np.random.default_rng(seed)
     return {"b": np.float32(0.05),
             "w": rng.normal(scale=0.1, size=F).astype(np.float32),
-            "v": rng.normal(scale=scale, size=(F, K)).astype(np.float32)}
+            "v": rng.normal(scale=scale, size=(F, k)).astype(np.float32)}
 
 
 def ref_params(p):
@@ -269,3 +269,146 @@ def test_fm_refuses_a_mesh():
     from dmlc_core_tpu_torch.base import DMLCError
     with pytest.raises(DMLCError, match="multi-device"):
         FMLearner(4, mesh=object(), device="cpu")
+
+
+# -- the FM kernel's plain version (ops/hopper_kernels.py) -------------------
+# fm_csr_kernel takes fm_csr_reference for CPU tensors; on the card the
+# kernel pair of csrc/fm_csr.cu computes the same margins and gradients
+# (tests/test_torch_cuda.py holds them against this version there).
+def sorted_shard(rng, lengths, bucket, repeat=False):
+    """A shard as every batcher lays it out: row r's lengths[r] nonzeros
+    in row order, padding (row R, col 0, val 0) at the tail. ``repeat``:
+    each row's first column appears twice in it."""
+    R = len(lengths)
+    col = [rng.integers(0, F, n) for n in lengths]
+    if repeat:
+        for c in col:
+            if len(c) >= 2:
+                c[1] = c[0]
+    nnz = int(sum(lengths))
+    row = np.full(bucket, R, np.int32)
+    row[:nnz] = np.repeat(np.arange(R), lengths)
+    cols = np.zeros(bucket, np.int32)
+    cols[:nnz] = np.concatenate(col) if nnz else []
+    val = np.zeros(bucket, np.float32)
+    val[:nnz] = rng.normal(size=nnz)
+    return row, cols, val
+
+
+def ref_margin_and_grads(p, row, col, val, R, g):
+    """The reference's margins and the gradients of sum(g * margin) in b,
+    w and v (jax.grad)."""
+    import jax
+
+    def loss(rp):
+        m = ref_margin_csr(rp, jnp.asarray(row), jnp.asarray(col),
+                           jnp.asarray(val), R)
+        return jnp.sum(jnp.asarray(g) * m), m
+
+    grads, m = jax.grad(loss, has_aux=True)(ref_params(p))
+    return [np.asarray(m)] + [np.asarray(getattr(grads, k))
+                              for k in ("b", "w", "v")]
+
+
+def port_margin_and_grads(fn, p, row, col, val, R, g):
+    leaves = [torch.from_numpy(np.asarray(p[k])).requires_grad_(True)
+              for k in ("b", "w", "v")]
+    m = fn(*leaves, torch.from_numpy(row), torch.from_numpy(col),
+           torch.from_numpy(val), R)
+    grads = torch.autograd.grad((m * torch.from_numpy(g)).sum(), leaves)
+    return [m.detach().numpy()] + [t.numpy() for t in grads]
+
+
+def assert_matches_reference(row, col, val, R, seed, k=K):
+    from dmlc_core_tpu_torch.ops import hopper_kernels as hk
+    p = start_params(seed, k=k)
+    g = np.random.default_rng(seed).normal(size=R).astype(np.float32)
+    want = ref_margin_and_grads(p, row, col, val, R, g)
+    for fn in (hk.fm_csr_reference, hk.fm_csr_kernel):
+        got = port_margin_and_grads(fn, p, row, col, val, R, g)
+        for name, a, b in zip(("margin", "b", "w", "v"), got, want):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("case", ["padding_tail", "empty_rows",
+                                  "repeated_column", "all_padding",
+                                  "no_padding", "out_of_order",
+                                  "rank_96"])
+def test_fm_kernel_plain_version_matches_reference(case):
+    rng = np.random.default_rng(11)
+    R = 48
+    lengths = rng.integers(1, 9, R)
+    bucket = 512
+    if case == "empty_rows":
+        lengths[::5] = 0
+        lengths[20:30] = 0
+    if case == "all_padding":
+        lengths[:] = 0
+    if case == "no_padding":
+        bucket = int(lengths.sum())
+    row, col, val = sorted_shard(rng, lengths, bucket,
+                                 repeat=case == "repeated_column")
+    if case == "repeated_column":
+        assert any(len(set(col[row == r])) < (row == r).sum()
+                   for r in range(R))
+    if case == "out_of_order":  # rows and padding shuffled together
+        order = rng.permutation(bucket)
+        row, col, val = row[order], col[order], val[order]
+        assert np.any(np.diff(row) < 0)
+    assert_matches_reference(row, col, val, R, seed=len(case),
+                             k=96 if case == "rank_96" else K)
+
+
+def test_fm_kernel_plain_version_on_two_shard_batches(tmp_path):
+    # a 2-shard batch's shards, each a sorted shard with its own padding
+    from dmlc_core_tpu_torch.device.device_iter import CsrRecHostBatcher
+    from dmlc_core_tpu_torch.io.convert import rows_to_csr_recordio
+    text = write_libfm(tmp_path / "s.libfm", rows=300, fields=True)
+    crec = str(tmp_path / "s.crec")
+    rows_to_csr_recordio(text, crec, fmt="libfm")
+    batcher = CsrRecHostBatcher(crec, batch_rows=128, num_shards=2,
+                                min_nnz_bucket=256)
+    shards = 0
+    while (batch := batcher.next_batch()) is not None:
+        R = batch.rows_per_shard
+        for d in range(2):
+            assert_matches_reference(batch.row[d].copy(), batch.col[d].copy(),
+                                      batch.val[d].copy(), R, seed=d)
+            shards += 1
+    batcher.close()
+    assert shards == 6  # 300 rows: 3 batches of 2 shards, the last short
+
+
+def test_fm_kernel_wrapper_refuses_bad_inputs():
+    from dmlc_core_tpu_torch.base import DMLCError
+    from dmlc_core_tpu_torch.ops import hopper_kernels as hk
+    b, w, v = torch.tensor(0.0), torch.zeros(F), torch.zeros((F, K))
+    r = torch.zeros(6, dtype=torch.int32)
+    x = torch.zeros(6)
+    with pytest.raises(DMLCError, match="int32 row/col"):
+        hk.fm_csr_kernel(b, w, v, r.long(), r, x, 2)
+    with pytest.raises(DMLCError, match="float32 b/w/v/val"):
+        hk.fm_csr_kernel(b, w, v.double(), r, r, x, 2)
+    with pytest.raises(DMLCError, match="three 1-D arrays of one length"):
+        hk.fm_csr_kernel(b, w, v, r, r[:5], x, 2)
+    with pytest.raises(DMLCError, match="w \\[F\\], v \\[F, K\\]"):
+        hk.fm_csr_kernel(b, w[:5], v, r, r, x, 2)
+    with pytest.raises(DMLCError, match="contiguous"):
+        hk.fm_csr_kernel(b, w, v, r.repeat(2)[::2], r, x, 2)
+    with pytest.raises(DMLCError, match="contiguous"):
+        hk.fm_csr_kernel(b, w, v.t().contiguous().t(), r, r, x, 2)
+    with pytest.raises(DMLCError, match="at least 1 factor"):
+        hk.fm_csr_kernel(b, w, torch.zeros((F, 0)), r, r, x, 2)
+    meta = [t.to("meta") for t in (b, w, v, r, r, x)]
+    with pytest.raises(DMLCError, match="one CUDA device"):
+        hk.fm_csr_kernel(*meta, 2)
+
+
+def test_fm_learner_counts_kernel_steps_only_on_the_card(tmp_path):
+    # on the CPU the plain version runs: the counter does not move
+    from dmlc_core_tpu_torch import telemetry
+    before = telemetry.counter("fm_kernel_steps").value
+    uri = write_libfm(tmp_path / "c.libsvm", rows=256)
+    run_both(uri, "logistic", "csr", steps=2)
+    assert telemetry.counter("fm_kernel_steps").value == before

@@ -535,3 +535,225 @@ def test_process_part_and_data_mesh_take_the_references_arguments(
     assert sharding.data_mesh(device="cpu").axis_name == "data"
     with pytest.raises(DMLCError, match="one device per rank"):
         sharding.data_mesh(4, device="cpu")
+
+
+# -- the .crec fill from a mapping of the file (io/crec_map.py) --------------
+# A local .crec file, whole or a byte-range part, is filled in place from a
+# read-only mapping, and a
+# pooled buffer's padding is written only where its previous fill left
+# useful entries. Its planes must be the shared core's FillPacked's
+# (NativeCsrRecBatcher) bit for bit.
+def write_uneven(path, rows=700, features=40, seed=0, qid=False,
+                 fields=False, constant=False):
+    """libsvm (or libfm with ``fields``) rows whose lengths swing by block:
+    64-row runs of long rows (up to 30 features), then of short ones (0-3,
+    empty rows among them), so consecutive batches differ in nnz. With
+    ``constant``: six features a row, as in Criteo's fixed fields, except
+    rows 300-310 (two) and 520-529 (none)."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(rows):
+            if constant:
+                n = 2 if 300 <= i <= 310 else 0 if 520 <= i < 530 else 6
+            else:
+                n = rng.integers(10, 31) if (i // 64) % 2 == 0 else \
+                    rng.integers(0, 4)
+            keep = np.sort(rng.choice(features, n, replace=False))
+            vals = rng.uniform(-2, 2, n)
+            if fields:
+                feats = " ".join(f"{j % 5}:{j}:{v:.5f}"
+                                 for j, v in zip(keep, vals))
+            else:
+                feats = " ".join(f"{j}:{v:.5f}" for j, v in zip(keep, vals))
+            head = f"{int(rng.integers(0, 3))} qid:{i // 7}" if qid else \
+                f"{int(rng.random() < 0.5)}"
+            f.write(f"{head} {feats}\n".replace("  ", " "))
+    return str(path)
+
+
+def uneven_crec(tmp_path, qid=False, fields=False, rows_per_record=37,
+                constant=False):
+    src = write_uneven(tmp_path / "u.txt", qid=qid, fields=fields,
+                       constant=constant)
+    uri = str(tmp_path / "u.crec")
+    convert.rows_to_csr_recordio(src, uri, fmt="libfm" if fields else
+                                 "libsvm", rows_per_record=rows_per_record)
+    return uri
+
+
+def fill_both(uri, D, epochs=2, batch_rows=128, part=0, npart=1):
+    """Every fill of ``epochs`` epochs of part ``part`` of ``npart`` by the
+    mapped fill into ONE reused buffer set and by the shared FillPacked
+    into fresh buffers full of garbage: [(take, pad written, mapped planes,
+    native planes)]."""
+    from dmlc_core_tpu_torch.io.crec_map import (BufferState,
+                                                 MappedCsrRecBatcher)
+    from dmlc_core_tpu_torch.io.native import NativeCsrRecBatcher
+    mapped = MappedCsrRecBatcher(uri, part=part, npart=npart,
+                                 batch_rows=batch_rows, num_shards=D,
+                                 min_nnz_bucket=64)
+    native = NativeCsrRecBatcher(uri, part=part, npart=npart,
+                                 batch_rows=batch_rows, num_shards=D,
+                                 min_nnz_bucket=64)
+    meta = mapped.meta()
+    assert meta == native.meta()
+    B, _, hq, hf = meta
+    R = batch_rows // D
+    big = np.full((D, 3 + hf, B), -5, np.int32)
+    aux = np.full((D, 3 + hq, R), -5, np.int32)
+    nrows = np.zeros(D, np.int32)
+    held = BufferState(D, R, B)
+    out = []
+    for epoch in range(epochs):
+        while True:
+            nbig = np.full_like(big, 0x7f7f7f7f)
+            naux = np.full_like(aux, 0x7f7f7f7f)
+            nn = np.zeros(D, np.int32)
+            want = native.fill_packed(nbig, naux, nn)
+            take, pad = mapped.fill_packed(big, aux, nrows, held)
+            assert take == want
+            if take == 0:
+                break
+            out.append((take, pad, (big.copy(), aux.copy(), nrows.copy()),
+                        (nbig, naux, nn)))
+        assert mapped.bytes_read() == native.bytes_read()
+        assert mapped.set_epoch(epoch + 1) == native.set_epoch(epoch + 1)
+        mapped.before_first()
+        native.before_first()
+    mapped.close()
+    native.close()
+    return out
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("planes", ["plain", "qid", "field",
+                                    "constant_rows"])
+def test_mapped_crec_fill_equals_fill_packed(tmp_path, D, planes):
+    # constant_rows: most refills find their rows' ids in place
+    uri = uneven_crec(tmp_path, qid=planes == "qid",
+                      fields=planes == "field",
+                      constant=planes == "constant_rows")
+    fills = fill_both(uri, D)
+    assert len(fills) == 2 * 6  # 700 rows: 6 batches an epoch, two epochs
+    for take, _, got, want in fills:
+        for g, w in zip(got, want):
+            assert g.tobytes() == w.tobytes()
+    nnz = [int(np.searchsorted(f[3][0][d, 0], 128 // D))
+           for f in fills for d in range(D)]
+    assert len(set(nnz)) > 2  # the shards' nnz swing from fill to fill
+
+
+@pytest.mark.parametrize("npart", [2, 3, 5])
+@pytest.mark.parametrize("D", [1, 2])
+def test_mapped_crec_parts_equal_fill_packed(tmp_path, npart, D):
+    # byte-range parts (dmlc-submit workers): each part's records are the
+    # shared split's, and the parts together hold every row once
+    uri = uneven_crec(tmp_path, fields=True)
+    rows = 0
+    for part in range(npart):
+        fills = fill_both(uri, D, part=part, npart=npart)
+        assert fills  # 19 records of 37 rows: every part holds some
+        for take, _, got, want in fills:
+            for g, w in zip(got, want):
+                assert g.tobytes() == w.tobytes()
+        rows += sum(f[0] for f in fills) // 2  # two epochs
+    assert rows == 700
+
+
+def test_crec_iterator_maps_a_part_of_a_local_file(tmp_path):
+    uri = uneven_crec(tmp_path)
+    for part in range(3):
+        want = ref_host(uri, part=part, npart=3, min_nnz_bucket=64)
+        with di.DeviceRowBlockIter(uri, part=part, npart=3,
+                                   batch_rows=BATCH_ROWS, device="cpu",
+                                   min_nnz_bucket=64, prefetch=0) as it:
+            assert it.batcher._mapped
+            got = [{k: v.numpy().copy() for k, v in b.tree().items()}
+                   for b in it]
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            w = w.tree()
+            assert set(g) == set(w)
+            for k in w:
+                assert g[k].tobytes() == np.asarray(w[k]).tobytes(), k
+
+
+def test_mapped_crec_refill_with_fewer_nonzeros_pads_the_stale_tail(
+        tmp_path):
+    uri = uneven_crec(tmp_path)
+    fills = fill_both(uri, 1)
+    R = 128
+    useful = [int(np.searchsorted(f[3][0][0, 0], R)) for f in fills]
+    B = fills[0][3][0].shape[-1]
+    # the first fill pads the fresh buffer's whole tail; each later one
+    # pads only where the fill before it left useful entries
+    assert fills[0][1] == B - useful[0]
+    for i in range(1, len(fills)):
+        assert fills[i][1] == max(0, useful[i - 1] - useful[i])
+    shrink = [i for i in range(1, len(fills)) if useful[i] < useful[i - 1]]
+    assert shrink
+    for i in shrink:  # the stale tail reads as padding
+        big = fills[i][2][0][0]
+        tail = slice(useful[i], useful[i - 1])
+        assert (big[0, tail] == R).all()
+        assert not big[1:, tail].any()
+
+
+def test_crec_iterator_pools_buffers_and_counts_the_padding_it_writes(
+        tmp_path):
+    uri = uneven_crec(tmp_path, fields=True)
+    want = ref_host(uri, min_nnz_bucket=64)
+    counter = telemetry.counter("crec_pad_entries_written")
+    for prefetch in (0, 2):
+        got, written = [], []
+        before = counter.value
+        with di.DeviceRowBlockIter(uri, batch_rows=BATCH_ROWS, device="cpu",
+                                   min_nnz_bucket=64,
+                                   prefetch=prefetch) as it:
+            assert it.batcher._mapped
+            for epoch in range(3):
+                for batch in it:
+                    got.append({k: v.numpy().copy()
+                                for k, v in batch.tree().items()})
+                    del batch  # the buffers go back to the pool
+                it.before_first()
+        # every epoch's batches are the reference's, bit for bit
+        for i, g in enumerate(got):
+            w = want[i % len(want)].tree()
+            assert set(g) == set(w)
+            for k in w:
+                assert g[k].tobytes() == np.asarray(w[k]).tobytes(), k
+        written = counter.value - before
+        slots = sum(g["big"][0].shape[-1] for g in got)
+        nnz = sum(int(np.searchsorted(g["big"][0, 0], BATCH_ROWS))
+                  for g in got)
+        # pooled buffers skip some of the padding the batches hold
+        assert 0 < written < slots - nnz, (written, slots - nnz)
+
+
+def test_crec_pad_counter_counts_every_written_entry(tmp_path):
+    # one buffer, reused: the counter moves by exactly what each fill
+    # padded, and a URI the mapping does not serve counts the shared
+    # fill's whole padding
+    uri = uneven_crec(tmp_path)
+    counter = telemetry.counter("crec_pad_entries_written")
+    for source in (uri, uri + "#" + str(tmp_path / "chunks")):
+        batcher = di.CsrRecHostBatcher(source, batch_rows=BATCH_ROWS,
+                                       min_nnz_bucket=64)
+        assert batcher._mapped == ("#" not in source)
+        prev = None
+        while True:
+            before = counter.value
+            batch = batcher.next_batch()
+            if batch is None:
+                break
+            useful = int(np.searchsorted(batch.row[0], BATCH_ROWS))
+            B = batch.nnz_bucket
+            if not batcher._mapped or prev is None:
+                want = B - useful
+            else:
+                want = max(0, prev - useful)
+            assert counter.value - before == want
+            prev = useful
+            batcher.recycle(batch)
+        batcher.close()

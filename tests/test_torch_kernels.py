@@ -208,7 +208,10 @@ def test_plain_version_keeps_launch_count():
     row, col, val = random_csr(rng, 8, 8, 40)
     hk.csr_to_dense_kernel(*th(row, col, val), 8, 8)
     assert hk.csr_to_dense_kernel.launches == 0
-    assert set(hk.KERNELS) == {"csr_to_dense"}
+    assert set(hk.KERNELS) == {"csr_to_dense", "fm_csr"}
+    b, w, v = torch.tensor(0.0), torch.zeros(8), torch.ones((8, 3))
+    m = hk.fm_csr_kernel(b, w, v, *th(row, col, val), 8)
+    assert m.shape == (8,) and hk.fm_csr_kernel.launches == 0
 
 
 def test_kernel_source_is_cuda_for_hopper():
@@ -221,7 +224,11 @@ def test_kernel_source_is_cuda_for_hopper():
     assert "__ldcs(col + i)" in src and "__ldcs(val + i)" in src
     assert "cudaMemsetAsync" in src
     assert "arch=compute_90a,code=sm_90a" in hk.NVCC_ARCH
-    assert hk.CSR_TO_DENSE_LIB.startswith(BUILD_DIR)
+    assert hk.KERNEL_LIB.startswith(BUILD_DIR)
+    # both sources build into the one library the wrappers bind
+    assert hk.KERNEL_SOURCES == (hk.CSR_TO_DENSE_SOURCE, hk.FM_CSR_SOURCE)
+    fm = open(hk.FM_CSR_SOURCE).read()
+    assert "__global__" in fm and "replaces no tpu kernel" in fm.lower()
 
 
 # -- the segment ops of ops/sparse.py ----------------------------------------
