@@ -236,7 +236,7 @@ def run(ctx) -> dict:
                                    arr, t0, t1, epochs)
     ref = ctx.part("reference", kind).train(
         arr, p0, cfg["batch_rows"], CHECK_STEPS, cfg["model"])
-    gaps = correct.train_gaps(first, ref, cfg["model"]["learning_rate"])
+    gaps = correct.train_gaps(first, ref, cfg["model"], model)
     out["checks"] = correct.checks(gaps, ctx.limits())
     return out
 

@@ -9,6 +9,13 @@ accumulator only the rows the checked steps look up (``table<t>``,
 ``acc_table<t>``, in ascending row order): rows outside them neither
 enter those steps nor change, so the check loses nothing. :func:`init`
 finds those rows from the generator's arrays for the seed.
+
+What the check reads of Adagrad (``benchmark/correct.py``):
+:func:`gradient` works the first gradient out of the update and the
+accumulator after it, :func:`leaf_kind` keeps the weights' and the
+accumulators' norms, which differ by orders of magnitude, apart, and
+:data:`LOSS_STEPS` and :data:`CHANGE_MEDIAN_LEAF` compare the first
+step's loss and the median leaf's change.
 """
 
 from __future__ import annotations
@@ -26,6 +33,15 @@ CHECK_STEPS = 3
 CPU_TABLE_BYTES = 1 << 30
 # the rows each table's checked steps look up, by the table's address
 _CHECK_ROWS: dict = {}
+# the losses the check compares: the first step's. Adagrad's first step
+# moves every entry by about the learning rate whatever its gradient's
+# size, so an entry whose gradient is round-off takes a whole step in a
+# direction round-off picks, and the later losses of sound float32 runs
+# wander from float64's by up to 1e-3 (the first's by 1e-7)
+LOSS_STEPS = 1
+# change_gap is the median leaf's: for the same reason a few leaves'
+# changes (an accumulator of a top bias) wander by up to 2e-2
+CHANGE_MEDIAN_LEAF = True
 
 
 def _generator(config: dict):
@@ -112,6 +128,32 @@ def init(config: dict, seed: int, device: str):
         torch.as_tensor(r, device=params.table.device)
         for r in check_rows(arr, m, n)]
     return params
+
+
+def leaf_kind(name: str) -> str:
+    """``state`` for an accumulator, ``weight`` for every other leaf."""
+    return "state" if name.startswith("acc_") else "weight"
+
+
+def gradient(before: dict, after: dict, model: dict) -> dict:
+    """The first gradient of each weight leaf as Adagrad got it, from the
+    leaves before and after its step: the step moved the leaf by
+    ``lr · g / (√acc + eps)`` with ``acc`` the accumulator after it (a
+    table row's one accumulator for the row), so ``g = (before − after) ·
+    (√acc + eps) / lr``. (The update alone is ``g / (|g| + eps)`` from an
+    accumulator of 0: each entry's sign, whatever the gradient's size,
+    and the few entries whose gradient is near ``eps`` weigh the most.)
+    The accumulators hold no gradient of their own."""
+    lr, eps = model["learning_rate"], model["adagrad_eps"]
+    out = {}
+    for k, p0 in before.items():
+        if leaf_kind(k) != "weight":
+            continue
+        step = np.sqrt(np.asarray(after["acc_" + k], np.float64)) + eps
+        p0 = np.asarray(p0, np.float64)
+        out[k] = (p0 - np.asarray(after[k], np.float64)) * \
+            step.reshape(step.shape + (1,) * (p0.ndim - step.ndim)) / lr
+    return out
 
 
 def leaves(params) -> dict:

@@ -6,19 +6,16 @@ CPU.
   over 1,000,000 rows, N for the others; the generator draws from the
   same rows.
 - The multi-hot ids after each table's first are a function of it.
-- A small run of the cell through ``harness.run_cell`` is correct: a
-  copy of the checkout whose configuration holds small tables (each at
-  most 97 rows; the generator reads them from it) and small widths, the published 26
-  tables and multi-hot sizes, 4,096 rows in batches of 1,024.
+- A small run of the cell through ``harness.run_cell`` is correct: the
+  copy of the checkout with small tables and widths (``conftest.py``'s
+  ``dlrm_small_root``), 4,096 rows in batches of 1,024.
 - The step's roofline counts, worked by hand at the published widths.
 """
 
 from __future__ import annotations
 
-import json
 import math
 import os
-import shutil
 
 import numpy as np
 import pytest
@@ -105,23 +102,10 @@ def test_step_roofline_worked_by_hand():
                       + 16044545 * 16)
 
 
-@pytest.fixture(scope="module")
-def small_root(tmp_path_factory):
+@pytest.fixture
+def small_root(dlrm_small_root):
     """A checkout whose ``dlrm_dcnv2`` holds small tables and widths."""
-    root = tmp_path_factory.mktemp("dlrm_checkout")
-    shutil.copytree(os.path.join(ROOT, "benchmark"), root / "benchmark",
-                    ignore=shutil.ignore_patterns(".cache", "__pycache__"))
-    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
-    cfg = config()
-    small = [min(n, 97)
-             for n in cfg["published"]["num_embeddings_per_feature"]]
-    cfg["model"].update({"num_embeddings_per_feature": small,
-                         "embedding_dim": 16,
-                         "dense_arch_layer_sizes": [24, 16],
-                         "dcn_low_rank_dim": 8,
-                         "over_arch_layer_sizes": [32, 16, 1]})
-    (root / "benchmark/configs/dlrm_dcnv2.json").write_text(json.dumps(cfg))
-    return str(root)
+    return dlrm_small_root
 
 
 @pytest.mark.parametrize("trace", [0, 1])
